@@ -18,6 +18,7 @@ setup(
     package_data={
         "mlqem_tpu.device": ["fixtures/*.json"],
         "mlqem_tpu.apps": ["fixtures/*.txt"],
+        "mlqem_tpu_torch": ["csrc/*.cu"],
     },
     include_package_data=True,
     python_requires=">=3.10",

@@ -1,0 +1,164 @@
+"""Port vs JAX package: the kicked-Ising label generator as a whole.
+
+Both engines take the same noise draws, made with numpy: the JAX engine
+imports ``sample_small_categorical`` from ``mlqem_tpu.ops.sampling`` when
+it runs, and the port's engine calls ``mlqem_tpu_torch.ops.sampling``'s, so
+patching both module attributes hands them the same draws. Everything
+after the draws is deterministic (with ``shots=None``) and is held to
+float rounding.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mlqem_tpu.ops.sampling as j_sampling
+from mlqem_tpu.device.registry import configurable_device as j_configurable
+from mlqem_tpu.ops.kicked_ising import KickedIsingEngine as JEngine
+
+import mlqem_tpu_torch.ops.sampling as t_sampling
+from mlqem_tpu_torch import KickedIsingEngine, configurable_device
+from mlqem_tpu_torch.convert import engine_tables_from_numpy
+
+
+def _draws(rng, steps, rows, nb):
+    """Every one of the 16 Paulis, uniformly: a hard test of propagation."""
+    return rng.integers(0, 16, size=(steps, rows, nb, 2)).astype(np.int32)
+
+
+def _share_draws(monkeypatch, draws):
+    def j_sample(key, probs, shape):
+        assert tuple(shape) == draws.shape
+        return jnp.asarray(draws)
+
+    def t_sample(probs, shape, generator):
+        assert tuple(shape) == draws.shape
+        return torch.as_tensor(draws)
+
+    monkeypatch.setattr(j_sampling, "sample_small_categorical", j_sample)
+    monkeypatch.setattr(t_sampling, "sample_small_categorical", t_sample)
+
+
+@pytest.mark.parametrize("nq", [5, 10])
+def test_frame_signs_identical(nq, rng, monkeypatch):
+    B, T, S = 4, 8, 3
+    jeng = JEngine(j_configurable(nq, seed=0), nq=nq, steps=S, n_traj=T,
+                   shots=None, use_pallas=False)
+    eng = KickedIsingEngine(configurable_device(nq, seed=0), nq=nq,
+                            steps=S, device="cpu", n_traj=T, shots=None)
+    draws = _draws(rng, S, B * T, nq - 1)
+    _share_draws(monkeypatch, draws)
+    j_kick, j_bond, j_flip = (np.asarray(a) for a in
+                              jeng._frame_signs(jax.random.PRNGKey(0), B))
+    kick, bond, flip = eng.frame_signs(eng.sample_draws(B * T, None))
+    # port layout [rows, S·k] vs JAX [S, rows, k]
+    np.testing.assert_array_equal(
+        kick.numpy(), np.swapaxes(j_kick, 0, 1).reshape(B * T, S * nq))
+    np.testing.assert_array_equal(
+        bond.numpy(), np.swapaxes(j_bond, 0, 1).reshape(B * T, -1))
+    np.testing.assert_array_equal(flip.numpy(), j_flip)
+    assert (kick == -1).any() and (bond == -1).any() and (flip == -1).any()
+
+
+@pytest.mark.parametrize("readout", [True, False])
+@pytest.mark.parametrize("noise_scale", [1, 3])
+@pytest.mark.parametrize("nq", [6, 10])
+def test_labels_match_jax_without_shots(nq, noise_scale, readout, rng,
+                                        monkeypatch):
+    B, T, S = 4, 8, 4
+    J = rng.uniform(0.05, 0.6, size=B).astype(np.float32)
+    kw = dict(nq=nq, steps=S, dt=0.25, n_traj=T, shots=None,
+              readout=readout, noise_scale=noise_scale)
+    jeng = JEngine(j_configurable(nq, seed=0), use_pallas=False, **kw)
+    eng = KickedIsingEngine(configurable_device(nq, seed=0), device="cpu",
+                            **kw)
+    # the port builds the same tables itself; assert it, then force them
+    np.testing.assert_allclose(eng.tables.bond_probs.numpy(),
+                               jeng._bond_probs, atol=1e-7, rtol=0)
+    assert (eng.tables.confusion is None) == (jeng._confusion is None)
+    eng.tables = engine_tables_from_numpy(jeng._bond_probs, jeng._confusion)
+    # mostly identity (no error), plus a share of uniform Paulis so every
+    # frame path is exercised
+    draws = _draws(rng, S, B * T, nq - 1)
+    keep = rng.random(draws.shape) < 0.9
+    draws[keep] = 0
+    _share_draws(monkeypatch, draws)
+    j_ideal, j_noisy = jeng.generate(J, seed=0)
+    ideal, noisy = eng.generate(J, seed=0)
+    assert ideal.shape == noisy.shape == (B, nq)
+    np.testing.assert_allclose(ideal, j_ideal, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(noisy, j_noisy, atol=1e-5, rtol=0)
+
+
+def test_shot_noise_within_five_sigma():
+    nq, B, T, shots = 10, 4, 8, 10000
+    J = np.random.default_rng(5).uniform(0.05, 0.6, size=B)
+    kw = dict(nq=nq, steps=4, device="cpu", n_traj=T)
+    exact = KickedIsingEngine(configurable_device(nq, seed=0), shots=None,
+                              **kw)
+    sampled = KickedIsingEngine(configurable_device(nq, seed=0),
+                                shots=shots, **kw)
+    # same seed → same noise draws, so only the binomial shots differ
+    ideal0, noisy0 = exact.generate(J, seed=11)
+    ideal1, noisy1 = sampled.generate(J, seed=11)
+    np.testing.assert_array_equal(ideal0, ideal1)
+    n = shots // T                      # 1250 shots per trajectory
+    sigma = np.sqrt(1.0 / (n * T))      # var(mean) ≤ Σ 4p(1−p)/n / T²
+    assert np.all(np.abs(noisy1 - noisy0) <= 5 * sigma)
+    assert not np.array_equal(noisy1, noisy0)
+
+
+def test_noisy_labels_match_jax_statistically():
+    """Independent streams (torch Philox vs JAX threefry): the trajectory
+    means agree within their sampling spread."""
+    nq, B, T = 6, 2, 2000
+    J = np.array([0.2, 0.5], np.float32)
+    kw = dict(nq=nq, steps=4, n_traj=T, shots=None)
+    j_ideal, j_noisy = JEngine(j_configurable(nq, seed=0), use_pallas=False,
+                               **kw).generate(J, seed=0)
+    ideal, noisy = KickedIsingEngine(configurable_device(nq, seed=0),
+                                     device="cpu", **kw).generate(J, seed=0)
+    np.testing.assert_allclose(ideal, j_ideal, atol=1e-5, rtol=0)
+    assert np.all(np.abs(noisy - j_noisy) <= 5 * np.sqrt(2.0 / T))
+    assert np.abs(noisy - ideal).max() > 1e-3     # the noise does act
+
+
+def test_use_kernel_needs_cuda():
+    with pytest.raises(ValueError, match="CUDA"):
+        KickedIsingEngine(configurable_device(4, seed=0), nq=4, steps=1,
+                          device="cpu", use_kernel=True)
+
+
+def test_engine_tables_for_a_custom_noise_model():
+    from mlqem_tpu.device.noise import NoiseModel as JNoiseModel
+    from mlqem_tpu.ops.channels import depolarizing_channel as j_depol
+
+    from mlqem_tpu_torch import NoiseModel
+    from mlqem_tpu_torch.ops.channels import depolarizing_channel
+
+    nq = 5
+    nm = NoiseModel(nq).add_all_qubit_quantum_error(
+        depolarizing_channel(0.03, 2), "cx")
+    nm.add_quantum_error(depolarizing_channel(0.1, 2), "cx", (3, 2))
+    jnm = JNoiseModel(nq).add_all_qubit_quantum_error(j_depol(0.03, 2), "cx")
+    jnm.add_quantum_error(j_depol(0.1, 2), "cx", (3, 2))
+    kw = dict(nq=nq, steps=2, n_traj=4, noise_scale=2)
+    eng = KickedIsingEngine(configurable_device(nq), device="cpu",
+                            noise_model=nm, **kw)
+    jeng = JEngine(j_configurable(nq), noise_model=jnm, use_pallas=False,
+                   **kw)
+    np.testing.assert_allclose(eng.tables.bond_probs.numpy(),
+                               jeng._bond_probs, atol=1e-7, rtol=0)
+    assert eng.tables.confusion is None and jeng._confusion is None
+
+
+def test_engine_refuses_noise_on_rotations():
+    from mlqem_tpu_torch import NoiseModel
+    from mlqem_tpu_torch.ops.channels import depolarizing_channel
+
+    nm = NoiseModel(4).add_all_qubit_quantum_error(
+        depolarizing_channel(0.01, 1), "rx")
+    with pytest.raises(ValueError, match="CX\\+readout noise only"):
+        KickedIsingEngine(configurable_device(4), nq=4, steps=1,
+                          device="cpu", noise_model=nm)
