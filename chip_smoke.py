@@ -6,7 +6,8 @@
 Phases, each of which exits non-zero on failure:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the float32 matmul settings, which must be IEEE f32 (no TF32);
-2. build the fused evolution kernel from ``mlqem_tpu_torch/csrc/evolve.cu``;
+2. build both kernels at once from ``mlqem_tpu_torch/csrc/evolve.cu`` (K1)
+   and ``mlqem_tpu_torch/csrc/frame_evolve.cu`` (K2), one ``nvcc`` each;
 3. hold the kernel against its plain PyTorch version on the card
    (nq 6, 8, 10; 4 steps; ragged row counts; max|Δ| ≤ 1e-5) and time both
    at the main path's noisy-arm shape (nq=10, 524,288 rows);
@@ -17,7 +18,19 @@ Phases, each of which exits non-zero on failure:
    [−1, 1], the ideal labels must match an independent numpy statevector
    simulation, and, with ``shots=None``, the kernel path must match the
    plain path to 1e-5;
-5. time whole batches (pairs/min), the stages, and peak device memory.
+5. time whole batches (pairs/min), the stages, and peak device memory;
+6. hold K2 against its plain PyTorch version (max|Δ| ≤ 2e-5) on random
+   plans of every op kind (nq 2, 5, 10, 13; ragged row counts) and on the
+   bench template's plan (nq 10, 4 steps: 148 ops) at 16,384 rows, and time
+   both at the frame pipeline's shape (262,144 rows);
+7. run the generic Pauli-frame label pipeline at ``bench.py --method
+   frame``'s configuration (``IsingLabelPipeline(method="frame")``: 8192
+   circuits × 32 trajectories, nq 10, 4 steps, 10,000 shots) through K2:
+   one K2 launch per batch, labels finite, of shape (8192, 10) and in
+   [−1, 1], ideal labels matching the numpy statevector, the kernel path
+   matching the plain path with ``shots=None``, and the batch-mean noisy
+   ⟨Z_q⟩ matching the kicked-Ising engine's within 5 standard errors;
+8. time the frame pipeline: pairs/min, the stages, peak device memory.
 
 The line before the last is the card as ``nvidia-smi`` gives it; the one
 before that holds the kernels' JSON record. The last line is
@@ -29,11 +42,16 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NQ, STEPS, DT, N_TRAJ, SHOTS, BATCH = 10, 4, 0.25, 32, 10000, 16384
 NOISY_ROWS = BATCH * N_TRAJ
 TOL = 1e-5
+FRAME_BATCH = 8192                    # bench.py's default for --method frame
+FRAME_ROWS = FRAME_BATCH * N_TRAJ
+K2_CHECK_ROWS = 16384                 # the bench plan's check against plain
+K2_TOL = 2e-5
 
 
 def fail(msg):
@@ -94,6 +112,62 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def time_kernel_and_plain(run_kernel, run_plain, plain_reps):
+    """Plain, kernel, kernel, plain on the same card: (best kernel ms, best
+    plain ms, the kernel runs, the plain runs)."""
+    plain_ms = [time_ms(run_plain, plain_reps)]
+    kernel_ms = [time_ms(run_kernel, 5), time_ms(run_kernel, 5)]
+    plain_ms.append(time_ms(run_plain, plain_reps))
+    return min(kernel_ms), min(plain_ms), kernel_ms, plain_ms
+
+
+def time_batches(generate, J, rng, card, label):
+    """pairs/min over 5 ``generate`` batches after a warm-up, each ending
+    in the host copy, and the peak device memory over them."""
+    import numpy as np
+    import torch
+
+    generate(J, seed=1)                             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch_s = []
+    for seed in range(2, 7):
+        Jb = rng.uniform(0.05, 0.6, size=len(J)).astype(np.float32)
+        t0 = time.perf_counter()
+        generate(Jb, seed=seed)                     # ends in a host copy
+        batch_s.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = statistics.median(batch_s)
+    print(f"{label}pairs/min: {len(J) * 60.0 / med:.0f} (median of "
+          f"{len(batch_s)} batches, {med * 1e3:.1f} ms/batch; best "
+          f"{len(J) * 60.0 / min(batch_s):.0f}; batches "
+          f"{[round(s * 1e3, 1) for s in batch_s]} ms) [{card}]")
+    print(f"{label}peak device memory: {peak_gib:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) [{card}]")
+
+
+def stage_split(run, device):
+    """Median ms of each stage over 3 batches, with a synchronize at each
+    stage mark: ``run(generator, mark)`` runs one batch."""
+    import torch
+
+    stage_ms = {}
+    for seed in range(7, 10):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def mark(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stage_ms.setdefault(stage, []).append((now - last[0]) * 1e3)
+            last[0] = now
+
+        run(gen, mark)
+    return {k: statistics.median(v) for k, v in stage_ms.items()}
+
+
 def exact_ideal_z(J, nq, steps, dt, h=1.0):
     """Independent check: ⟨Z_q⟩ of the Trotter circuit by complex128
     statevector simulation, gate by gate (RX(2h·dt) on every qubit, then
@@ -123,6 +197,165 @@ def exact_ideal_z(J, nq, steps, dt, h=1.0):
     return np.stack(out)
 
 
+def frame_phases(card, cuda, device_model):
+    """Phases 6-8: K2 against its plain version, the frame pipeline at
+    full width, and its timing. Returns K2's record."""
+    import numpy as np
+    import torch
+
+    import mlqem_tpu_torch.ops.kernels.evolve as kev
+    import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+    from mlqem_tpu_torch import IsingLabelPipeline, KickedIsingEngine
+    from mlqem_tpu_torch.ops.frame_trajectory import (frame_plan,
+                                                      frame_theta_eff)
+
+    # -- 6. K2 vs its plain version --------------------------------------------
+    rng = np.random.default_rng(6)
+    for nq, rows in [(2, 1001), (5, 4099), (10, 3001), (13, 257)]:
+        plan, n_rot = kfe.every_kind_plan(rng, nq, 148)
+        theta = torch.as_tensor(rng.uniform(-3, 3, size=(rows, n_rot)),
+                                dtype=torch.float32, device=cuda)
+        got = kfe.evolve_frame_marginals(theta, plan, nq)
+        want = kfe.evolve_frame_marginals_reference(theta, plan, nq)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"K2 vs plain: random plan of every kind, nq={nq} "
+              f"rows={rows} ops={len(plan)} max|Δ|={err:.3e}")
+        require(err <= K2_TOL, f"K2 disagrees with its plain version "
+                f"(nq={nq}, rows={rows}): {err} > {K2_TOL}")
+
+    def pipeline(**kw):
+        return IsingLabelPipeline(device_model, nq=NQ, steps=STEPS, dt=DT,
+                                  h=1.0, n_traj=N_TRAJ, method="frame",
+                                  device=cuda, **kw)
+
+    t0 = time.perf_counter()
+    pipe = pipeline(shots=SHOTS)
+    tables_s = time.perf_counter() - t0
+    plan, rot_meta = frame_plan(pipe.ct_struct)
+    counts = {k: sum(op[0] == k for op in plan)
+              for k in (kfe.ROT_X, kfe.ROT_Z, kfe.GATE_CX)}
+    print(f"bench template plan: {len(plan)} ops = {counts[kfe.ROT_X]} rx + "
+          f"{counts[kfe.ROT_Z]} rz + {counts[kfe.GATE_CX]} cx, "
+          f"{len(rot_meta)} angles")
+    require(len(plan) == 148 and counts == {kfe.ROT_X: 40, kfe.ROT_Z: 36,
+                                            kfe.GATE_CX: 72},
+            "the bench template's plan is not 40 rx + 36 rz + 72 cx")
+
+    def bench_theta(batch, seed):
+        """Sign-folded angles of the pipeline's own draws: [batch·T, R]."""
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(seed)
+        J = torch.as_tensor(rng.uniform(0.05, 0.6, size=(batch, 1)),
+                            dtype=torch.float32, device=cuda)
+        ct = pipe.template.bind(J)
+        choices = pipe.sample_draws(batch, gen)
+        return frame_theta_eff(pipe.ct_struct, ct.params, choices)[0]
+
+    theta = bench_theta(K2_CHECK_ROWS // N_TRAJ, seed=1)
+    got = kfe.evolve_frame_marginals(theta, plan, NQ)
+    want = kfe.evolve_frame_marginals_reference(theta, plan, NQ)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"K2 vs plain: bench template plan, rows={theta.shape[0]} "
+          f"max|Δ|={err:.3e}")
+    require(err <= K2_TOL, f"K2 disagrees on the bench plan: {err}")
+
+    theta = bench_theta(FRAME_BATCH, seed=2)
+    got = kfe.evolve_frame_marginals(theta, plan, NQ)
+    want = kfe.evolve_frame_marginals_reference(theta, plan, NQ)
+    torch.cuda.synchronize()
+    big_err = (got - want).abs().max().item()
+    del got, want
+    require(big_err <= K2_TOL, f"K2 disagrees at bench shape: {big_err}")
+
+    def run_kernel():
+        kfe.evolve_frame_marginals(theta, plan, NQ)
+
+    def run_plain():
+        kfe.evolve_frame_marginals_reference(theta, plan, NQ)
+
+    k_ms, p_ms, kernel_ms, plain_ms = time_kernel_and_plain(
+        run_kernel, run_plain, 1)
+    del theta
+    torch.cuda.empty_cache()
+    print(f"evolve_frame_marginals nq={NQ} ops={len(plan)} rows={FRAME_ROWS}: "
+          f"max|Δ|={big_err:.3e}; kernel {k_ms:.3f} ms "
+          f"(runs {[round(x, 3) for x in kernel_ms]}), plain PyTorch "
+          f"{p_ms:.3f} ms (runs {[round(x, 3) for x in plain_ms]}) [{card}]")
+
+    # -- 7. the frame pipeline at full width -----------------------------------
+    J = rng.uniform(0.05, 0.6, size=FRAME_BATCH).astype(np.float32)
+    kev.evolve_fused.launches = 0
+    kfe.evolve_frame_marginals.launches = 0
+    ideal, noisy = pipe.generate(J, seed=0)
+    torch.cuda.synchronize()
+    launches = kfe.evolve_frame_marginals.launches
+    print(f"frame path: 1 batch of {FRAME_BATCH} circuits x {N_TRAJ} "
+          f"trajectories, {SHOTS} shots: evolve_frame_marginals launches = "
+          f"{launches}, evolve_fused launches = {kev.evolve_fused.launches}")
+    require(launches == 1, f"expected 1 K2 launch, got {launches}")
+    for name, lab in (("ideal", ideal), ("noisy", noisy)):
+        require(lab.shape == (FRAME_BATCH, NQ), f"{name} shape {lab.shape}")
+        require(bool(np.isfinite(lab).all()), f"{name} has non-finite values")
+        require(bool((np.abs(lab) <= 1.0 + 1e-6).all()),
+                f"{name} leaves [-1, 1]")
+    exact = exact_ideal_z(J[:4], NQ, STEPS, DT)
+    ideal_err = float(np.abs(ideal[:4] - exact).max())
+    print(f"frame path ideal labels vs complex128 statevector (4 circuits): "
+          f"max|Δ|={ideal_err:.3e}")
+    require(ideal_err <= TOL, f"frame path ideal labels wrong: {ideal_err}")
+    gap = float(np.abs(noisy - ideal).mean())
+    print(f"frame path mean |noisy - ideal| = {gap:.4f}")
+    require(gap > 1e-3, "noise had no effect on the frame path")
+
+    labels = {}
+    for use_kernel in (True, False):
+        p = pipeline(shots=None, use_kernel=use_kernel)
+        labels[use_kernel] = p.generate(J, seed=1)
+        del p
+        torch.cuda.empty_cache()
+    path_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(labels[True], labels[False]))
+    print(f"frame path, shots=None, same draws: kernel path vs plain path: "
+          f"max|Δ| = {path_err:.3e} (ideal and noisy)")
+    require(path_err <= TOL, f"frame kernel path disagrees: {path_err}")
+
+    kicked = KickedIsingEngine(device_model, nq=NQ, steps=STEPS, dt=DT,
+                               n_traj=N_TRAJ, shots=None, device=cuda)
+    k_ideal, k_noisy = kicked.generate(J, seed=2)
+    del kicked
+    torch.cuda.empty_cache()
+    d = labels[True][1] - k_noisy          # per circuit, independent draws
+    se = d.std(axis=0, ddof=1) / np.sqrt(FRAME_BATCH)
+    z = np.abs(d.mean(axis=0)) / se
+    print(f"cross-engine, shots=None: batch-mean noisy <Z_q> frame "
+          f"{[round(float(x), 4) for x in labels[True][1].mean(axis=0)]} "
+          f"vs kicked {[round(float(x), 4) for x in k_noisy.mean(axis=0)]}; "
+          f"max |Δ|/se = "
+          f"{z.max():.2f} (se {se.max():.1e}); ideal max|Δ| = "
+          f"{np.abs(labels[True][0] - k_ideal).max():.2e}")
+    require(bool((z <= 5.0).all()), f"frame and kicked engines disagree: "
+            f"{z.max():.2f} standard errors")
+
+    # -- 8. timing ---------------------------------------------------------------
+    time_batches(pipe.generate, J, rng, card, "frame path ")
+    params = torch.as_tensor(pipe.params_from_values(J), device=cuda)
+    split = stage_split(lambda gen, mark: pipe.run(params, gen, mark=mark),
+                        cuda)
+    print(f"frame path stage split (median of 3 batches, synchronized per "
+          f"stage) [{card}]:")
+    print(f"  (a) noise tables + template (host, once per pipeline): "
+          f"{tables_s * 1e3:.1f} ms")
+    print(f"  (b) draws + frame walk + theta_eff: {split['frame']:.1f} ms")
+    print(f"  (c) K2, {FRAME_ROWS} rows: {split['evolve']:.1f} ms")
+    print(f"  (d) frame flip + confusion + shots: {split['readout']:.1f} ms")
+    print(f"  (c') ideal arm (statevector, {FRAME_BATCH} circuits, + <Z>): "
+          f"{split['ideal']:.1f} ms")
+    return {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
+            "plain_ms": p_ms}
+
+
 def main():
     require(os.path.isdir(os.path.join(ROOT, "mlqem_tpu_torch")),
             f"no mlqem_tpu_torch package beside {__file__}")
@@ -145,20 +378,31 @@ def main():
     cuda = torch.device("cuda")
 
     import mlqem_tpu_torch.ops.kernels.evolve as kev
+    import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
     from mlqem_tpu_torch import KickedIsingEngine, configurable_device
     from mlqem_tpu_torch.utils.build import library_path
 
     # -- 2. build ------------------------------------------------------------
+    def timed_build(load):
+        t = time.perf_counter()
+        load()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    kev.load_library()
-    print(f"build: evolve.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
-    log = library_path("evolve") + ".log"
-    if os.path.exists(log):
-        with open(log) as f:
-            for line in f:
-                if "ptxas info" in line:
-                    print("  " + line.strip())
+    with ThreadPoolExecutor(2) as pool:
+        builds = dict(zip(("evolve", "frame_evolve"),
+                          pool.map(timed_build, (kev.load_library,
+                                                 kfe.load_library))))
+    print(f"build: evolve.cu and frame_evolve.cu built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (in parallel; "
+          f"{builds['evolve']:.2f} s and {builds['frame_evolve']:.2f} s)")
+    for name in builds:
+        log = library_path(name) + ".log"
+        if os.path.exists(log):
+            with open(log) as f:
+                for line in f:
+                    if "ptxas info" in line or "bytes stack frame" in line:
+                        print(f"  {name}.cu: " + line.strip())
 
     # -- 3. kernel vs plain version -------------------------------------------
     for nq, rows in [(6, 4099), (8, 4099), (8, 16384), (10, 4099),
@@ -186,12 +430,9 @@ def main():
     def run_plain():
         kev.evolve_fused_reference(*args, 2.0 * DT, STEPS, NQ, nb)
 
-    # alternate plain, kernel, kernel, plain on the same card
-    plain_ms = [time_ms(run_plain, 2)]
-    kernel_ms = [time_ms(run_kernel, 5), time_ms(run_kernel, 5)]
-    plain_ms.append(time_ms(run_plain, 2))
+    k_ms, p_ms, kernel_ms, plain_ms = time_kernel_and_plain(
+        run_kernel, run_plain, 2)
     del args
-    k_ms, p_ms = min(kernel_ms), min(plain_ms)
     print(f"evolve_fused nq={NQ} steps={STEPS} rows={NOISY_ROWS}: "
           f"max|Δ|={big_err:.3e}; kernel {k_ms:.3f} ms "
           f"(runs {[round(x, 3) for x in kernel_ms]}), plain PyTorch "
@@ -206,11 +447,14 @@ def main():
     rng = np.random.default_rng(0)
     J = rng.uniform(0.05, 0.6, size=BATCH).astype(np.float32)
     kev.evolve_fused.launches = 0
+    kfe.evolve_frame_marginals.launches = 0
     ideal, noisy = eng.generate(J, seed=0)
     torch.cuda.synchronize()
     launches = kev.evolve_fused.launches
     print(f"main path: 1 batch of {BATCH} circuits x {N_TRAJ} trajectories, "
-          f"{SHOTS} shots: evolve_fused launches = {launches}")
+          f"{SHOTS} shots: evolve_fused launches = {launches}, "
+          f"evolve_frame_marginals launches = "
+          f"{kfe.evolve_frame_marginals.launches}")
     require(launches == 2, f"expected 2 kernel launches, got {launches}")
     for name, lab in (("ideal", ideal), ("noisy", noisy)):
         require(lab.shape == (BATCH, NQ), f"{name} shape {lab.shape}")
@@ -241,40 +485,9 @@ def main():
     require(path_err <= TOL, f"kernel path disagrees: {path_err}")
 
     # -- 5. timing ------------------------------------------------------------
-    eng.generate(J, seed=1)                     # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    batch_s = []
-    for seed in range(2, 7):
-        Jb = rng.uniform(0.05, 0.6, size=BATCH).astype(np.float32)
-        t0 = time.perf_counter()
-        eng.generate(Jb, seed=seed)             # ends in a host copy
-        batch_s.append(time.perf_counter() - t0)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    med = statistics.median(batch_s)
-    print(f"pairs/min: {BATCH * 60.0 / med:.0f} (median of "
-          f"{len(batch_s)} batches, {med * 1e3:.1f} ms/batch; best "
-          f"{BATCH * 60.0 / min(batch_s):.0f}; batches "
-          f"{[round(s * 1e3, 1) for s in batch_s]} ms) [{card}]")
-    print(f"peak device memory: {peak_gib:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated) [{card}]")
-
-    stage_ms = {}
-    for seed in range(7, 10):
-        gen = torch.Generator(device=cuda)
-        gen.manual_seed(seed)
-        Jt = torch.as_tensor(J, device=cuda)
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
-
-        def mark(stage):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stage_ms.setdefault(stage, []).append((now - last[0]) * 1e3)
-            last[0] = now
-
-        eng.run(Jt, gen, mark=mark)
-    split = {k: statistics.median(v) for k, v in stage_ms.items()}
+    time_batches(eng.generate, J, rng, card, "")
+    Jt = torch.as_tensor(J, device=cuda)
+    split = stage_split(lambda gen, mark: eng.run(Jt, gen, mark=mark), cuda)
     print(f"stage split (median of 3 batches, synchronized per stage) "
           f"[{card}]:")
     print(f"  (a) noise tables (host, once per engine): "
@@ -287,12 +500,21 @@ def main():
     print(f"  (c') ideal arm (kernel, {BATCH} rows, + <Z>): "
           f"{split['ideal']:.1f} ms")
 
+    del eng
+    torch.cuda.empty_cache()
+    k2 = frame_phases(card, cuda, device_model)
+
     record = {"kernels": [{
         "name": "evolve_fused", "route": "cuda",
         "source": "mlqem_tpu_torch/csrc/evolve.cu",
         "replaces": "mlqem_tpu/ops/pallas/evolve.py:107",
         "launches": launches, "max_abs_err": big_err,
-        "ms": k_ms, "plain_ms": p_ms}]}
+        "ms": k_ms, "plain_ms": p_ms}, {
+        "name": "evolve_frame_marginals", "route": "cuda",
+        "source": "mlqem_tpu_torch/csrc/frame_evolve.cu",
+        "replaces": "mlqem_tpu/ops/pallas/frame_evolve.py:134",
+        "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"]}]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,33 @@
-"""mlqem_tpu_torch — the kicked-Ising label generator in PyTorch and CUDA.
+"""mlqem_tpu_torch — ML-QEM training-label generators in PyTorch and CUDA.
 
-A port of the JAX package ``mlqem_tpu`` to PyTorch, with the fused
-evolution as a hand-written CUDA kernel for Hopper (``csrc/evolve.cu``).
-It mirrors the JAX package's module paths and imports neither JAX nor
-``mlqem_tpu``.
+A port of the JAX package ``mlqem_tpu`` to PyTorch, with its TPU kernels
+as hand-written CUDA kernels for Hopper: the kicked-Ising evolution
+(``csrc/evolve.cu``) and the generic Pauli-frame evolution
+(``csrc/frame_evolve.cu``). It mirrors the JAX package's module paths and
+imports neither JAX nor ``mlqem_tpu``.
 
 Quick start::
 
-    from mlqem_tpu_torch import KickedIsingEngine, configurable_device
+    from mlqem_tpu_torch import (IsingLabelPipeline, KickedIsingEngine,
+                                 configurable_device)
 
     eng = KickedIsingEngine(configurable_device(10, seed=0), nq=10,
                             steps=4, device="cuda")
     ideal, noisy = eng.generate(J_values, seed=0)   # numpy [B, 10] each
+
+    pipe = IsingLabelPipeline(configurable_device(10, seed=0), nq=10,
+                              steps=4, device="cuda", method="frame",
+                              n_traj=32)
+    ideal, noisy = pipe.generate(J_values, seed=0)
 """
 
+from .circuits.circuit import Circuit
 from .device.model import DeviceModel
 from .device.noise import NoiseModel
 from .device.registry import configurable_device, get_device
 from .ops.kicked_ising import KickedIsingEngine
+from .parallel.datagen import IsingLabelPipeline, make_ising_template
 
-__all__ = ["DeviceModel", "KickedIsingEngine", "NoiseModel",
-           "configurable_device", "get_device"]
+__all__ = ["Circuit", "DeviceModel", "IsingLabelPipeline",
+           "KickedIsingEngine", "NoiseModel", "configurable_device",
+           "get_device", "make_ising_template"]

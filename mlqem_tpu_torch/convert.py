@@ -1,18 +1,21 @@
 """Carry state from the JAX package into the port.
 
-Both take plain Python and numpy values, so the port never imports the JAX
-package: a caller that has both (a test) hands over what the JAX side
-produced.
+Every function takes plain Python and numpy values, so the port never
+imports the JAX package: a caller that has both (a test) hands over what
+the JAX side produced.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from .circuits.circuit import CircuitTensor
+from .circuits.parameters import CircuitTemplate, Parameter
 from .device.model import DeviceModel
 from .ops.kicked_ising import EngineTables
+from .parallel.datagen import PipelineTables
 
 
 def device_from_jax_dict(d: dict) -> DeviceModel:
@@ -35,11 +38,57 @@ def engine_tables_from_numpy(bond_probs: np.ndarray,
     if bond_probs.ndim != 2 or bond_probs.shape[1] != 16:
         raise ValueError(f"bond_probs must be [n_bonds, 16], got "
                          f"{bond_probs.shape}")
-    if confusion is not None:
-        confusion = np.asarray(confusion, np.float32)
-        if confusion.ndim != 3 or confusion.shape[1:] != (2, 2):
-            raise ValueError(f"confusion must be [nq, 2, 2], got "
-                             f"{confusion.shape}")
-        confusion = torch.as_tensor(confusion, device=device)
     return EngineTables(torch.as_tensor(bond_probs, device=device),
-                        confusion)
+                        _confusion_tensor(confusion, device))
+
+
+def _confusion_tensor(confusion: Optional[np.ndarray],
+                      device) -> Optional[torch.Tensor]:
+    if confusion is None:
+        return None
+    confusion = np.asarray(confusion, np.float32)
+    if confusion.ndim != 3 or confusion.shape[1:] != (2, 2):
+        raise ValueError(f"confusion must be [nq, 2, 2], got "
+                         f"{confusion.shape}")
+    return torch.as_tensor(confusion, device=device)
+
+
+def circuit_tensor_from_numpy(gate_ids: np.ndarray, qubits: np.ndarray,
+                              params: np.ndarray, num_qubits: int
+                              ) -> CircuitTensor:
+    """A port :class:`CircuitTensor` from a JAX one's arrays."""
+    return CircuitTensor(np.asarray(gate_ids, np.int32),
+                         np.asarray(qubits, np.int32),
+                         np.asarray(params, np.float32), int(num_qubits))
+
+
+def template_from_numpy(gate_ids: np.ndarray, qubits: np.ndarray,
+                        params: np.ndarray, num_qubits: int,
+                        slot_op: np.ndarray, slot_par: np.ndarray,
+                        slot_param: np.ndarray, slot_coeff: np.ndarray,
+                        parameter_names: Sequence[str]) -> CircuitTemplate:
+    """A port :class:`CircuitTemplate` from a JAX template's ``ct`` arrays,
+    ``slot_*`` arrays and parameter names (in order)."""
+    return CircuitTemplate(
+        circuit_tensor_from_numpy(gate_ids, qubits, params, num_qubits),
+        np.asarray(slot_op, np.int32), np.asarray(slot_par, np.int32),
+        np.asarray(slot_param, np.int32), np.asarray(slot_coeff, np.float32),
+        [Parameter(name) for name in parameter_names])
+
+
+def pipeline_tables_from_numpy(pauli_probs: np.ndarray,
+                               confusion: Optional[np.ndarray],
+                               device: Union[str, torch.device] = "cpu"
+                               ) -> PipelineTables:
+    """Pipeline tables from a JAX pipeline's ``_pauli_probs`` [L, 16] and
+    ``_confusion`` [nq, 2, 2] (or None).
+
+    Assign the result to a port pipeline's ``tables`` to make it sample and
+    read out exactly as that JAX pipeline does.
+    """
+    pauli_probs = np.asarray(pauli_probs, np.float32)
+    if pauli_probs.ndim != 2 or pauli_probs.shape[1] != 16:
+        raise ValueError(f"pauli_probs must be [L, 16], got "
+                         f"{pauli_probs.shape}")
+    return PipelineTables(torch.as_tensor(pauli_probs, device=device),
+                          _confusion_tensor(confusion, device))

@@ -3,13 +3,18 @@
 Host-side equivalent of qiskit-aer's ``NoiseModel`` as used by the
 reference: ``NoiseModel.from_backend`` (thermal relaxation + depolarizing
 per gate, readout error on measure) → :meth:`NoiseModel.from_device`.
+A noise model compiles into a per-op 16×16 superoperator table
+(:func:`compile_noise_table`) and per-qubit readout matrices
+(:func:`readout_matrices`).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..circuits.circuit import CircuitTensor
+from ..circuits.gates import GATE_NAMES, GATE_NUM_QUBITS
 from ..ops.channels import (Channel, depol_param_for_target_error,
                             depolarizing_channel, readout_confusion,
                             thermal_relaxation_channel)
@@ -118,3 +123,59 @@ class NoiseModel:
                 if p > 0:
                     nm.set_readout_error(q, readout_confusion(p))
         return nm
+
+
+# ---------------------------------------------------------------------------
+# Compilation to the table form
+# ---------------------------------------------------------------------------
+def op_channels(ct: CircuitTensor, noise: Optional[NoiseModel]
+                ) -> Tuple[np.ndarray, List[Channel]]:
+    """The noise channel after every op, one per distinct (gate, qubits).
+
+    Returns (key_ids, channels): key_ids int32 has ``ct.gate_ids``'s shape;
+    op k is followed by ``channels[key_ids[k] - 1]``, or by no channel at
+    key 0 (NOP padding and noiseless ops). Keys count in order of first
+    appearance.
+    """
+    gate_ids = np.asarray(ct.gate_ids)
+    flat_q = np.asarray(ct.qubits).reshape(-1, 2)
+    flat_k = np.zeros(gate_ids.size, dtype=np.int32)
+    channels: List[Channel] = []
+    if noise is None or not (noise.local_channels or noise.default_channels):
+        return flat_k.reshape(gate_ids.shape), channels
+    lookup: Dict[Tuple[int, int, int], int] = {}
+    for idx, g in enumerate(gate_ids.reshape(-1).tolist()):
+        if g == 0:
+            continue
+        a, b = int(flat_q[idx, 0]), int(flat_q[idx, 1])
+        if (g, a, b) not in lookup:
+            name = GATE_NAMES[g]
+            two = GATE_NUM_QUBITS.get(name, 1) == 2
+            chan = noise.channel_for(name, (a, b) if two else (a,))
+            if chan is not None:
+                channels.append(chan)
+            lookup[(g, a, b)] = 0 if chan is None else len(channels)
+        flat_k[idx] = lookup[(g, a, b)]
+    return flat_k.reshape(gate_ids.shape), channels
+
+
+def compile_noise_table(ct: CircuitTensor, noise: Optional[NoiseModel]
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Build (key_ids, table) for the density-matrix engine.
+
+    key_ids has ``ct.gate_ids``'s shape; ``table[k]`` is the 16×16 noise
+    superoperator applied *after* op k's unitary (identity at key 0).
+    For 1q gates the channel acts on local slot 0 (the gate qubit = MSB).
+    """
+    key_ids, channels = op_channels(ct, noise)
+    table = [np.eye(16, dtype=np.complex128)] + [
+        (c.expand_to_2q(0) if c.dim == 2 else c).superop() for c in channels]
+    return key_ids, np.stack(table)
+
+
+def readout_matrices(noise: Optional[NoiseModel], num_qubits: int
+                     ) -> Optional[np.ndarray]:
+    """[nq, 2, 2] confusion matrices, or None if no readout error."""
+    if noise is None or noise.readout is None:
+        return None
+    return noise.readout[:num_qubits]

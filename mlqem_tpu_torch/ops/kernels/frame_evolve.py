@@ -1,0 +1,215 @@
+"""Fused generic Pauli-frame evolution: the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+:func:`evolve_frame_marginals` takes the same inputs as the JAX package's
+``ops/pallas/frame_evolve.py::evolve_frame_marginals``: per-row
+sign-folded angles ``theta_eff`` [rows, n_rot] and a plan, a tuple of
+``(kind, a, b, slot)`` ops. Every row starts at |0…0⟩, runs the plan and
+yields its per-qubit P(1) [rows, nq]. On CUDA tensors it launches the
+hand-written kernel of ``csrc/frame_evolve.cu`` (built with ``nvcc`` at
+first use) on the current stream, or raises; on CPU tensors it runs
+:func:`evolve_frame_marginals_reference`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ...utils.build import build_library
+
+# op kinds of a plan (the JAX package's values)
+ROT_Z, ROT_X, ROT_Y, ROT_ZZ = 0, 1, 2, 3
+GATE_H, GATE_CX, GATE_CY, GATE_CZ, GATE_SWAP = 4, 5, 6, 7, 8
+ROTATION_KINDS = (ROT_Z, ROT_X, ROT_Y, ROT_ZZ)
+TWO_QUBIT_KINDS = (ROT_ZZ, GATE_CX, GATE_CY, GATE_CZ, GATE_SWAP)
+
+MAX_NQ = 13
+_MAX_SMEM_BYTES = 232448 - 1024   # per-block shared memory on sm_90, less
+#                                   the kernel's static reduction scratch
+_INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
+
+Plan = Tuple[Tuple[int, int, int, int], ...]
+
+
+def check_plan(plan: Sequence, nq: int, n_rot: int) -> Plan:
+    """The plan as a tuple of int 4-tuples; raises on an unknown kind, a
+    qubit outside [0, nq), a 2q op on one qubit or a rotation slot outside
+    [0, n_rot). The second qubit of a 1q op is padding and is not read."""
+    out = []
+    for op in plan:
+        kind, a, b, slot = (int(x) for x in op)
+        if not GATE_SWAP >= kind >= ROT_Z:
+            raise ValueError(f"unknown plan kind {kind} in {op}")
+        if not 0 <= a < nq or (kind in TWO_QUBIT_KINDS
+                               and not (0 <= b < nq and a != b)):
+            raise ValueError(f"plan op {op} has qubits outside [0, {nq}) "
+                             "or a 2q op on one qubit")
+        if kind in ROTATION_KINDS and not 0 <= slot < n_rot:
+            raise ValueError(f"plan op {op} reads angle slot {slot} of "
+                             f"{n_rot}")
+        out.append((kind, a, b, slot))
+    return tuple(out)
+
+
+def every_kind_plan(rng: np.random.Generator, nq: int, n_ops: int
+                    ) -> Tuple[Plan, int]:
+    """A random plan of ``n_ops`` ops that cycles through every op kind
+    (the 1q kinds only at nq = 1), for holding the kernel to its plain
+    version. Returns (plan, number of angle slots)."""
+    kinds = (list(range(GATE_SWAP + 1)) if nq >= 2 else
+             [ROT_Z, ROT_X, ROT_Y, GATE_H])
+    plan, slot = [], 0
+    for i in range(n_ops):
+        kind = kinds[i % len(kinds)]
+        a = int(rng.integers(nq))
+        b = (a + 1 + int(rng.integers(nq - 1))) % nq if nq >= 2 else 1
+        plan.append((kind, a, b, slot if kind in ROTATION_KINDS else -1))
+        slot += kind in ROTATION_KINDS
+    return tuple(plan), slot
+
+
+def evolve_frame_marginals_reference(theta_eff: torch.Tensor, plan: Plan,
+                                     nq: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same op loop on
+    [rows, 2^nq] re/im planes, with each bit flip an ``index_select`` at
+    ``j ^ (1 << q)`` and the formulas of the JAX kernel
+    (``frame_evolve.py:84-125``)."""
+    rows, dim = theta_eff.shape[0], 1 << nq
+    device = theta_eff.device
+    j = torch.arange(dim, dtype=torch.int64, device=device)
+    bit = [((j >> q) & 1).to(torch.float32) for q in range(nq)]
+    sgn = [1.0 - 2.0 * b for b in bit]
+    flip_idx = [j ^ (1 << q) for q in range(nq)]
+
+    def flip(v, q):
+        return v.index_select(-1, flip_idx[q])
+
+    re = torch.zeros((rows, dim), dtype=torch.float32, device=device)
+    re[:, 0] = 1.0
+    im = torch.zeros_like(re)
+    for kind, a, b, slot in plan:
+        if kind in ROTATION_KINDS:
+            th = 0.5 * theta_eff[:, slot:slot + 1]
+            c, s = torch.cos(th), torch.sin(th)
+            if kind in (ROT_Z, ROT_ZZ):
+                sv = s * (sgn[a] if kind == ROT_Z else sgn[a] * sgn[b])
+                re, im = re * c + im * sv, im * c - re * sv
+            elif kind == ROT_X:
+                fr, fi = flip(re, a), flip(im, a)
+                re, im = c * re + s * fi, c * im - s * fr
+            else:                                        # ROT_Y
+                sv = s * sgn[a]
+                re, im = c * re - sv * flip(re, a), c * im - sv * flip(im, a)
+        elif kind == GATE_H:
+            re = (sgn[a] * re + flip(re, a)) * _INV_SQRT2
+            im = (sgn[a] * im + flip(im, a)) * _INV_SQRT2
+        elif kind == GATE_CX:
+            ctl = bit[a]
+            re = re * (1.0 - ctl) + flip(re, b) * ctl
+            im = im * (1.0 - ctl) + flip(im, b) * ctl
+        elif kind == GATE_CY:
+            ctl = bit[a]
+            nre = sgn[b] * flip(im, b)
+            nim = -sgn[b] * flip(re, b)
+            re = re * (1.0 - ctl) + nre * ctl
+            im = im * (1.0 - ctl) + nim * ctl
+        elif kind == GATE_CZ:
+            d = 1.0 - 2.0 * bit[a] * bit[b]
+            re, im = re * d, im * d
+        else:                                            # GATE_SWAP
+            differ = bit[a] + bit[b] - 2.0 * bit[a] * bit[b]
+            fre, fim = flip(flip(re, a), b), flip(flip(im, a), b)
+            re = re * (1.0 - differ) + fre * differ
+            im = im * (1.0 - differ) + fim * differ
+    probs = re * re + im * im
+    return torch.stack([(probs * bit[q]).sum(dim=-1) for q in range(nq)],
+                       dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (once per source version) and load ``csrc/frame_evolve.cu``."""
+    lib = build_library("frame_evolve")
+    fn = lib.evolve_frame_marginals_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tensor(plan: Plan, device: torch.device) -> torch.Tensor:
+    """The plan as an int32 [n_ops, 4] tensor on ``device``."""
+    return torch.as_tensor(np.asarray(plan, np.int32).reshape(-1, 4),
+                           device=device)
+
+
+def _smem_bytes(nq: int, n_ops: int, n_rot: int) -> int:
+    """Dynamic shared memory of one block: plan, re/im planes, cos/sin."""
+    return 16 * n_ops + 4 * (2 * (1 << nq) + 2 * n_rot)
+
+
+def evolve_frame_marginals(theta_eff: torch.Tensor, plan: Sequence,
+                           nq: int) -> torch.Tensor:
+    """Frame-basis per-qubit P(1): theta_eff [rows, n_rot] → [rows, nq].
+
+    ``plan`` is the op list: (kind, a, b, theta_slot) per op. Rows whose
+    trajectories share a circuit must already have the circuit's angles
+    broadcast (sign-folded per trajectory). With no rotation (n_rot = 0)
+    the angles are one zero column, as in the JAX package. CPU tensors go
+    to :func:`evolve_frame_marginals_reference`; CUDA tensors to the
+    kernel, which takes contiguous f32 angles and 1 ≤ nq ≤ 13 on an sm_90
+    card.
+    """
+    rows = theta_eff.shape[0]
+    device = theta_eff.device
+    if theta_eff.dim() != 2:
+        raise ValueError(f"theta_eff must be [rows, n_rot], got shape "
+                         f"{tuple(theta_eff.shape)}")
+    if theta_eff.shape[1] == 0:
+        theta_eff = torch.zeros((rows, 1), dtype=theta_eff.dtype,
+                                device=device)
+    n_rot = theta_eff.shape[1]
+    plan = check_plan(plan, nq, n_rot)
+    if device.type == "cpu":
+        return evolve_frame_marginals_reference(theta_eff, plan, nq)
+    if device.type != "cuda":
+        raise ValueError(f"evolve_frame_marginals runs on cpu or cuda, not "
+                         f"{device}")
+    if not 1 <= nq <= MAX_NQ:
+        raise ValueError(f"the kernel takes 1 <= nq <= {MAX_NQ}, got {nq}")
+    if theta_eff.dtype != torch.float32:
+        raise TypeError(f"theta_eff must be float32, got {theta_eff.dtype}")
+    if not theta_eff.is_contiguous():
+        raise ValueError("theta_eff must be contiguous")
+    if not rows < 2 ** 31:
+        raise ValueError(f"the kernel takes fewer than 2^31 rows, got {rows}")
+    if _smem_bytes(nq, len(plan), n_rot) > _MAX_SMEM_BYTES:
+        raise ValueError(f"a plan of {len(plan)} ops and {n_rot} angles at "
+                         f"nq={nq} exceeds the kernel's shared memory")
+    if torch.cuda.get_device_capability(device) != (9, 0):
+        raise RuntimeError("the kernel is built for sm_90a; "
+                           f"{torch.cuda.get_device_name(device)} is not")
+    out = torch.empty((rows, nq), dtype=torch.float32, device=device)
+    if rows == 0:
+        return out
+    plan_t = _plan_tensor(plan, device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.evolve_frame_marginals_launch(
+            theta_eff.data_ptr(), plan_t.data_ptr(), out.data_ptr(), rows,
+            nq, len(plan), n_rot, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"evolve_frame_marginals kernel launch failed: "
+                           f"CUDA error {err}")
+    evolve_frame_marginals.launches += 1
+    return out
+
+
+# kernel launches since the last reset (set it to 0 to reset)
+evolve_frame_marginals.launches = 0

@@ -1,15 +1,27 @@
-"""Pauli-twirled noise tables (host numpy).
+"""Pauli-twirled noise tables (host numpy) and the gather trajectory engine.
 
 A noise channel is projected onto its Pauli-twirled form: a Pauli channel
 whose probabilities are the Walsh–Hadamard transform of the channel's
 Pauli-transfer-matrix diagonal. The kicked-Ising engine samples one of the
-16 two-qubit Paulis after every CX from these tables.
+16 two-qubit Paulis after every CX from these tables; the generic engines
+sample one after every op (:func:`twirled_noise_tables`).
+
+:func:`run_trajectories_presampled` is the generic trajectory engine: each
+trajectory is a statevector run in which every op's 4x4 is multiplied by
+its sampled Pauli (any gate set; plain torch).
 """
 from __future__ import annotations
 
-import numpy as np
+from typing import Optional
 
+import numpy as np
+import torch
+
+from ..circuits.circuit import CircuitTensor
+from ..device.noise import NoiseModel, op_channels
 from .channels import Channel
+from .statevector import apply_op
+from .unitaries import COMPLEX_DTYPE, op_unitaries
 
 # the 16 two-qubit Paulis in (a=MSB, b=LSB) order: index = 4*pa + pb
 _P1 = [np.eye(2), np.array([[0, 1], [1, 0]]),
@@ -80,3 +92,51 @@ def pauli_channel_probs(channel: Channel) -> np.ndarray:
     if s > 0:
         p = p / s
     return p
+
+
+def twirled_noise_tables(ct: CircuitTensor, noise: Optional[NoiseModel]
+                         ) -> np.ndarray:
+    """Per-op Pauli-channel probabilities: float32[..., L, 16].
+
+    Built from the same (gate, qubits) channel lookup as the dm engine
+    (``device.noise.op_channels``); noiseless ops and NOP padding
+    get p = [1, 0, …] (identity).
+    """
+    key_ids, channels = op_channels(ct, noise)
+    table = np.stack([np.eye(1, 16, 0, dtype=np.float32)[0]] + [
+        pauli_channel_probs(c).astype(np.float32) for c in channels])
+    return table[key_ids]
+
+
+# the JAX package's name for applying per-state 4x4s at shared qubits
+apply_op_batched_mat = apply_op
+
+
+def run_trajectories_presampled(ct_struct: CircuitTensor,
+                                params: torch.Tensor,
+                                choices: torch.Tensor,
+                                num_qubits: int) -> torch.Tensor:
+    """Trajectory ensemble with pre-sampled Pauli choices (gather engine).
+
+    params [B, L, 3], choices int [B, T, L] → states complex64
+    [B, T, 2^n] on params' device. The shared gate_ids/qubits [L] come
+    from ``ct_struct`` (a template). After op l, trajectory t carries the
+    2q Pauli ``choices[b, t, l]`` (index 4·p_a + p_b) on the op's qubits.
+    """
+    n = max(num_qubits, 2)
+    params = torch.as_tensor(params, dtype=torch.float32)
+    device = params.device
+    qubits = np.asarray(ct_struct.qubits)
+    mats = op_unitaries(ct_struct.gate_ids, params)         # [B, L, 4, 4]
+    paulis = torch.as_tensor(PAULI_4X4, device=device)
+    choices = torch.as_tensor(choices, device=device).long()
+    B, T, L = choices.shape
+    state = torch.zeros((B, T, 2 ** n), dtype=COMPLEX_DTYPE, device=device)
+    state[..., 0] = 1.0
+    for l in range(L):
+        noise = paulis[choices[:, :, l]]                    # [B, T, 4, 4]
+        full = (noise[..., :, :, None]
+                * mats[:, None, l, None, :, :]).sum(dim=-2)
+        state = apply_op_batched_mat(state, full, int(qubits[l, 0]),
+                                     int(qubits[l, 1]), n)
+    return state

@@ -1,0 +1,227 @@
+"""The (ideal, noisy) label pipeline for a parameterized circuit template.
+
+Counterpart of ``mlqem_tpu/parallel/datagen.py``. A parameterized family
+(here the TFIM Trotter circuit) tensorizes once into a template; a batch of
+Hamiltonian parameters binds into it on the device, and the whole label
+pipeline runs as batched torch work:
+
+(a) the noise tables, on the host, once per pipeline: per-op twirled Pauli
+    probabilities (:func:`twirled_noise_tables`) and readout confusion;
+(b) the Pauli draws of every (circuit, trajectory, op), then, for
+    ``method="frame"``, the integer frame walk and the sign-folded angles
+    (:func:`frame_theta_eff`);
+(c) the noisy evolution: kernel K2 (:func:`evolve_frame_marginals`) for
+    ``frame``, the gather trajectory engine for ``trajectory_gather``;
+(d) the frame flip, readout confusion, ⟨Z⟩ and binomial shots;
+(c') the ideal arm: the statevector of every bound circuit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..circuits.families import IsingModel, IsingOptions
+from ..circuits.parameters import (CircuitTemplate, Parameter,
+                                   tensorize_template)
+from ..device.model import DeviceModel
+from ..device.noise import NoiseModel, compile_noise_table, readout_matrices
+from ..ops import sampling
+from ..ops.density import apply_readout_confusion
+from ..ops.frame_trajectory import (frame_marginals_to_z, frame_supported,
+                                    frame_theta_eff)
+from ..ops.kernels.frame_evolve import (evolve_frame_marginals,
+                                        evolve_frame_marginals_reference)
+from ..ops.statevector import probabilities, statevector, z_expectations
+from ..ops.trajectory import (run_trajectories_presampled,
+                              twirled_noise_tables)
+
+METHODS = ("density_matrix", "trajectory", "trajectory_gather", "frame")
+
+
+def make_ising_template(nq: int, steps: int, basis: str = "Z",
+                        dt: float = 0.25, h: Optional[float] = None
+                        ) -> CircuitTemplate:
+    """Parameterized TFIM Trotter template: J (and optionally h) symbolic."""
+    J = Parameter("J")
+    hp = Parameter("h") if h is None else h
+    ops = IsingOptions(nq=nq, h=hp, J=J, dt=dt, depth=steps,
+                       measure_basis=basis)
+    qc = IsingModel.make_circuit(ops, measure=False)
+    return tensorize_template(qc)
+
+
+@dataclasses.dataclass
+class PipelineTables:
+    """The pipeline's noise tables, on the pipeline's device.
+
+    pauli_probs [L, 16] f32: twirled Pauli probabilities after each op of
+    the template (index 4·p_a + p_b); confusion [nq, 2, 2] f32 readout
+    assignment matrices M[meas, true], or None without readout error.
+    """
+
+    pauli_probs: torch.Tensor
+    confusion: Optional[torch.Tensor]
+
+
+@dataclasses.dataclass
+class IsingLabelPipeline:
+    """(ideal, noisy) per-qubit-Z label generator for the TFIM template.
+
+    ``device`` is the torch device everything runs on. ``method``:
+
+    * ``"frame"``: Pauli-frame trajectories through kernel K2 on a CUDA
+      device, its plain version on the CPU (rotation+Clifford circuits);
+    * ``"trajectory_gather"``: the gather trajectory engine (any gate set);
+    * ``"trajectory"``: ``"frame"`` on a CUDA device when the template is
+      frame-supported, else ``"trajectory_gather"``;
+    * ``"density_matrix"`` (the JAX package's default): not ported yet.
+
+    ``use_kernel``: None runs K2 on a CUDA device and its plain version on
+    the CPU; True asks for the kernel (CUDA only); False runs the plain
+    version anywhere.
+    """
+
+    device_model: DeviceModel
+    nq: int
+    steps: int
+    device: Union[str, torch.device]
+    dt: float = 0.25
+    h: Optional[float] = 1.0   # None → symbolic (pass h_values at generate)
+    shots: Optional[int] = 10000
+    readout: bool = True
+    noise_model: Optional[NoiseModel] = None
+    method: str = "density_matrix"
+    n_traj: int = 100
+    use_kernel: Optional[bool] = None
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got "
+                             f"{self.method!r}")
+        if self.method == "density_matrix":
+            raise NotImplementedError(
+                "method='density_matrix' waits for the port of the exact "
+                "engines (ROADMAP slice 3); use 'frame', 'trajectory' or "
+                "'trajectory_gather'")
+        if self.use_kernel and self.device.type != "cuda":
+            raise ValueError("use_kernel=True needs a CUDA device, got "
+                             f"{self.device}")
+        self._use_kernel = (self.device.type == "cuda"
+                            if self.use_kernel is None else self.use_kernel)
+        self.template = make_ising_template(self.nq, self.steps, "Z",
+                                            self.dt, h=self.h)
+        nm = self.noise_model or NoiseModel.from_device(self.device_model)
+        # shared topology → the noise keys are identical across the batch
+        self.ct_struct = self.template.bind_host(
+            np.zeros(self.template.num_parameters, np.float32))
+        # the density-matrix engine's superoperator table (slice 3)
+        self._keys, self._table = compile_noise_table(self.ct_struct, nm)
+        ro = readout_matrices(nm, self.nq) if self.readout else None
+        self.tables = PipelineTables(
+            torch.as_tensor(twirled_noise_tables(self.ct_struct, nm),
+                            device=self.device),
+            None if ro is None else torch.as_tensor(
+                np.asarray(ro, np.float32), device=self.device))
+        supported = frame_supported(self.ct_struct, self.nq)
+        if self.method == "frame" and not supported:
+            raise ValueError(
+                "method='frame' needs rotations + Cliffords (gate set "
+                "{id,x,y,z,h,s,sdg,t,tdg,sx,sxdg,rx,ry,rz,p,rzz,cx,cy,cz,"
+                "swap}, <=30 qubits)")
+        if self.method == "trajectory":
+            self.method = ("frame" if self.device.type == "cuda"
+                           and supported else "trajectory_gather")
+
+    def sample_draws(self, batch: int, generator: torch.Generator
+                     ) -> torch.Tensor:
+        """The 2q Pauli after every op of every trajectory: int32
+        [batch, n_traj, L] (index 4·p_a + p_b on the op's qubits)."""
+        return sampling.sample_small_categorical(
+            self.tables.pauli_probs[None, None],
+            (batch, self.n_traj, self.ct_struct.max_ops), generator)
+
+    def run(self, params: torch.Tensor, generator: torch.Generator,
+            mark: Optional[Callable[[str], None]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ideal, noisy) ⟨Z_q⟩ [B, nq] for template values params [B, P]
+        on the device.
+
+        ``mark``, if given, is called with a stage's name as each stage
+        has been enqueued ("frame", "evolve", "readout", "ideal"), so a
+        caller can time the stages.
+        """
+        mark = mark or (lambda stage: None)
+        nq, T = self.nq, self.n_traj
+        ct = self.template.bind(params)             # params [B, L, 3]
+        B = params.shape[0]
+        choices = self.sample_draws(B, generator)
+        confusion = self.tables.confusion
+        if self.method == "frame":
+            theta_eff, fx, plan = frame_theta_eff(self.ct_struct, ct.params,
+                                                  choices)
+            del choices
+            mark("frame")
+            evolve = (evolve_frame_marginals if self._use_kernel
+                      else evolve_frame_marginals_reference)
+            p1 = evolve(theta_eff, plan, nq)
+            del theta_eff
+            mark("evolve")
+            z_traj = frame_marginals_to_z(p1.reshape(B, T, nq), fx,
+                                          confusion)
+        else:
+            mark("frame")
+            states = run_trajectories_presampled(self.ct_struct, ct.params,
+                                                 choices, nq)
+            del choices
+            probs = probabilities(states)
+            del states
+            mark("evolve")
+            if confusion is not None:
+                probs = apply_readout_confusion(probs, confusion, nq)
+            z_traj = z_expectations(probs, nq)      # [B, T, nq]
+        if self.shots is None:
+            noisy = z_traj.mean(dim=1)
+        else:
+            # the <Z_q> estimate from S joint samples is marginally
+            # Binomial(S, p1_q): sample that per qubit
+            shots_per_traj = max(1, self.shots // T)
+            p1 = ((1.0 - z_traj) / 2.0).clamp(0.0, 1.0)
+            counts = torch.binomial(
+                torch.full_like(p1, float(shots_per_traj)), p1,
+                generator=generator)
+            noisy = (1.0 - 2.0 * counts / shots_per_traj).mean(dim=1)
+        mark("readout")
+        ideal = z_expectations(probabilities(statevector(ct)), nq)
+        mark("ideal")
+        return ideal, noisy
+
+    def params_from_values(self, J_values: np.ndarray,
+                           h_values: Optional[np.ndarray] = None
+                           ) -> np.ndarray:
+        """Template values [B, P] (float32) in the template's parameter
+        order."""
+        cols = []
+        for p in self.template.parameters:
+            if p.name == "J":
+                cols.append(np.asarray(J_values, np.float32))
+            elif p.name == "h":
+                if h_values is None:
+                    raise ValueError("template has symbolic h; pass h_values")
+                cols.append(np.asarray(h_values, np.float32))
+        return np.stack(cols, axis=-1)
+
+    def generate(self, J_values: np.ndarray,
+                 h_values: Optional[np.ndarray] = None, seed: int = 0
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """(ideal[B, nq], noisy[B, nq]) as numpy for a batch of Hamiltonian
+        params; the noise comes from a generator seeded with ``seed``."""
+        params = self.params_from_values(J_values, h_values)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(seed)
+        ideal, noisy = self.run(torch.as_tensor(params, device=self.device),
+                                generator)
+        return ideal.cpu().numpy(), noisy.cpu().numpy()

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (marked ``cuda``; skips without one).
+"""The port's CUDA kernels on the card (marked ``cuda``; skips without one).
 
 This file imports neither JAX nor ``mlqem_tpu``, so it also runs where only
 PyTorch is installed::
@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from mlqem_tpu_torch import KickedIsingEngine, configurable_device
+from mlqem_tpu_torch import (IsingLabelPipeline, KickedIsingEngine,
+                             configurable_device)
 from mlqem_tpu_torch.ops.kernels import evolve as kev
+from mlqem_tpu_torch.ops.kernels import frame_evolve as fe
 from mlqem_tpu_torch.ops.kicked_ising import _sign_tables
 
 pytestmark = pytest.mark.cuda
@@ -86,6 +88,69 @@ def test_engine_kernel_matches_plain_path(cuda_device):
                                 steps=4, device=cuda_device, n_traj=16,
                                 shots=None, use_kernel=use_kernel)
         out.append(eng.generate(J, seed=3))
+    for got, want in zip(*out):
+        assert got.shape == (8, 10)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("nq,rows", [(1, 3), (2, 5), (5, 1000), (10, 4099),
+                                     (13, 17)])
+def test_frame_kernel_matches_reference(nq, rows, cuda_device):
+    rng = np.random.default_rng(nq)
+    plan, n_rot = fe.every_kind_plan(rng, nq, 148)
+    theta = torch.as_tensor(rng.uniform(-3, 3, size=(rows, n_rot)),
+                            dtype=torch.float32, device=cuda_device)
+    before = fe.evolve_frame_marginals.launches
+    got = fe.evolve_frame_marginals(theta, plan, nq)
+    want = fe.evolve_frame_marginals_reference(theta, plan, nq)
+    torch.cuda.synchronize()
+    assert fe.evolve_frame_marginals.launches == before + 1
+    assert got.shape == (rows, nq)
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+def test_frame_kernel_without_rotations(cuda_device):
+    plan = ((fe.GATE_H, 0, 1, -1), (fe.GATE_CX, 0, 2, -1),
+            (fe.GATE_CY, 2, 1, -1), (fe.GATE_SWAP, 0, 1, -1),
+            (fe.GATE_H, 2, 0, -1), (fe.GATE_CZ, 1, 2, -1))
+    theta = torch.zeros((7, 0), device=cuda_device)
+    got = fe.evolve_frame_marginals(theta, plan, 3)
+    want = fe.evolve_frame_marginals_reference(torch.zeros((7, 1)), plan, 3)
+    assert (got.cpu() - want).abs().max().item() <= 2e-5
+
+
+def test_frame_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    plan = ((fe.ROT_X, 0, 1, 0), (fe.GATE_CX, 0, 1, -1))
+    theta = torch.zeros((4, 1), device=cuda_device)
+    with pytest.raises(ValueError, match="rows, n_rot"):
+        fe.evolve_frame_marginals(theta[:, 0], plan, 2)
+    with pytest.raises(TypeError):
+        fe.evolve_frame_marginals(theta.double(), plan, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fe.evolve_frame_marginals(torch.zeros((2, 4), device=cuda_device).t(),
+                                  plan, 2)
+    with pytest.raises(ValueError, match="nq"):
+        fe.evolve_frame_marginals(theta, plan, 14)
+    with pytest.raises(ValueError, match="unknown plan kind"):
+        fe.evolve_frame_marginals(theta, ((12, 0, 1, -1),), 2)
+    with pytest.raises(ValueError, match="slot"):
+        fe.evolve_frame_marginals(theta, ((fe.ROT_Y, 0, 1, 3),), 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        fe.evolve_frame_marginals(theta, ((fe.GATE_H, 0, 1, -1),) * 12000,
+                                  13)
+
+
+def test_frame_pipeline_kernel_matches_plain_path(cuda_device):
+    J = np.random.default_rng(1).uniform(0.05, 0.6, size=8)
+    out = []
+    for use_kernel in (True, False):
+        pipe = IsingLabelPipeline(configurable_device(10, seed=0), nq=10,
+                                  steps=4, device=cuda_device, shots=None,
+                                  method="frame", n_traj=16,
+                                  use_kernel=use_kernel)
+        before = fe.evolve_frame_marginals.launches
+        out.append(pipe.generate(J, seed=3))
+        assert fe.evolve_frame_marginals.launches == before + use_kernel
     for got, want in zip(*out):
         assert got.shape == (8, 10)
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

@@ -50,22 +50,33 @@ def test_ast_scan_catches_a_jax_import(tmp_path):
 
 def test_exports():
     for name in ("KickedIsingEngine", "configurable_device", "get_device",
-                 "NoiseModel"):
+                 "NoiseModel", "Circuit", "IsingLabelPipeline",
+                 "make_ising_template"):
         assert hasattr(mlqem_tpu_torch, name)
 
 
-def test_kernel_source_and_build_flags():
-    src = os.path.join(build.CSRC_DIR, "evolve.cu")
+def _check_kernel_source(name, entry):
+    src = os.path.join(build.CSRC_DIR, f"{name}.cu")
     assert os.path.isfile(src)
     with open(src) as f:
         text = f.read()
-    assert 'extern "C" int evolve_fused_launch' in text
-    assert "sincosf(" in text and "__sinf" not in text
+    assert f'extern "C" int {entry}' in text
+    assert "sincosf(" in text
+    for fast in ("__sinf", "__cosf", "__sincosf", "__expf", "use_fast_math"):
+        assert fast not in text
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags
-    path = build.library_path("evolve")
+    path = build.library_path(name)
     assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
+
+
+def test_kernel_source_and_build_flags():
+    _check_kernel_source("evolve", "evolve_fused_launch")
+
+
+def test_frame_kernel_source_and_build_flags():
+    _check_kernel_source("frame_evolve", "evolve_frame_marginals_launch")
 
 
 def test_build_dir_is_ignored_and_sources_are_packaged():
