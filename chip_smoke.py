@@ -6,8 +6,9 @@
 Phases, each of which exits non-zero on failure:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the float32 matmul settings, which must be IEEE f32 (no TF32);
-2. build both kernels at once from ``mlqem_tpu_torch/csrc/evolve.cu`` (K1)
-   and ``mlqem_tpu_torch/csrc/frame_evolve.cu`` (K2), one ``nvcc`` each;
+2. build the four kernels at once from ``mlqem_tpu_torch/csrc/``:
+   ``evolve.cu`` (K1), ``frame_evolve.cu`` (K2), ``fused_step.cu`` (K3) and
+   ``wht.cu`` (K4), one ``nvcc`` each;
 3. hold the kernel against its plain PyTorch version on the card
    (nq 6, 8, 10; 4 steps; ragged row counts; max|Δ| ≤ 1e-5) and time both
    at the main path's noisy-arm shape (nq=10, 524,288 rows);
@@ -30,7 +31,28 @@ Phases, each of which exits non-zero on failure:
    [−1, 1], ideal labels matching the numpy statevector, the kernel path
    matching the plain path with ``shots=None``, and the batch-mean noisy
    ⟨Z_q⟩ matching the kicked-Ising engine's within 5 standard errors;
-8. time the frame pipeline: pairs/min, the stages, peak device memory.
+8. time the frame pipeline: pairs/min, the stages, peak device memory;
+9. hold K4 (``csrc/wht.cu``) against its plain version (w 1 to 21, ragged
+   rows down to 1; max|Δ| ≤ 2e-6·max|want| per plane) and K3
+   (``csrc/fused_step.cu``) against its plain version (w 3 to 14, unit-norm
+   states; max|Δ| ≤ 1e-5), and time both at the light-cone path's shapes;
+10. run the light-cone cross-check (``lightcone_crosscheck``: 100 qubits,
+    6 steps, w=13, 4096 realizations) against the Pauli-propagation audit
+    values that ship in ``docs/demos/results/audit_values_tpu.npz``:
+    90 K3 launches, ideal ≤ 1e-3, noisy arms ≤ 0.03;
+11. run demo1's configuration (``LightconeIsing``: 100 qubits, 10 steps,
+    w=21) through K4: kernel path vs plain path on the same draws
+    (≤ 1e-5); the w=21 ideal arm vs the w=13 one over steps 1-6 (≤ 1e-5);
+    one call of each arm (nf1: 1024 realizations × 49 shots with the ideal
+    arm, 900 K4 launches; nf3: 256 × 196, 200 launches), TREX-corrected
+    values inside their readout bounds;
+12. time the light-cone path: seconds per circuit for each arm, the stages
+    of one window chunk, peak device memory, and the artifact's derived
+    engine time.
+
+Every kernel's record holds its bound: the larger of the bytes it must move
+over 3.35 TB/s and the f32 operations it must do over 67 TFLOP/s (the
+H100 SXM's published peaks).
 
 The line before the last is the card as ``nvidia-smi`` gives it; the one
 before that holds the kernels' JSON record. The last line is
@@ -52,6 +74,18 @@ FRAME_BATCH = 8192                    # bench.py's default for --method frame
 FRAME_ROWS = FRAME_BATCH * N_TRAJ
 K2_CHECK_ROWS = 16384                 # the bench plan's check against plain
 K2_TOL = 2e-5
+HBM_BYTES_PER_S = 3.35e12             # H100 SXM, published
+F32_FLOPS_PER_S = 67e12               # H100 SXM, f32 outside the tensor cores
+# the light-cone path: demo1 (make_demo1_artifact.py) and its cross-check
+LC_NQ, LC_STEPS, LC_DT, LC_H = 100, 10, 0.5, 0.66 * 3.141592653589793
+LC_QUBITS = (11, 25, 39, 54, 94)
+LC_CHUNK = 128
+NF1_TRAJ, NF1_SHOTS = 1024, 49        # 50,000 measurements / 1024
+NF3_TRAJ, NF3_SHOTS = 256, 196
+XCK_TRAJ = 4096                       # the cross-check's realizations
+K3_TIME_ROWS = 3 * XCK_TRAJ           # the cross-check's noisy arm
+LC_W = 2 * LC_STEPS + 1               # demo1's window, K4's width
+K4_TOL = 2e-6                         # relative to max|want| per plane
 
 
 def fail(msg):
@@ -97,6 +131,28 @@ def kernel_inputs(nq, rows, seed, device):
             dev(rng.uniform(-1.2, -0.1, size=(rows, 1))),
             dev(bit_pm.T), dev(bond_par.T)]
     return args, nb
+
+
+def _counted():
+    """Every kernel wrapper, by its kernel's name."""
+    import mlqem_tpu_torch.ops.kernels.evolve as kev
+    import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+    import mlqem_tpu_torch.ops.kernels.fused_step as kfs
+    import mlqem_tpu_torch.ops.kernels.wht as kwht
+
+    return {"evolve_fused": kev.evolve_fused,
+            "evolve_frame_marginals": kfe.evolve_frame_marginals,
+            "fused_trotter_step": kfs.fused_trotter_step,
+            "wht_planes": kwht.wht_planes}
+
+
+def reset_launches():
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def time_ms(fn, reps):
@@ -168,6 +224,33 @@ def stage_split(run, device):
     return {k: statistics.median(v) for k, v in stage_ms.items()}
 
 
+def bound(n_bytes, n_flops):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def step_flops(nq, nb, dim):
+    """f32 operations of one kicked-Ising Trotter step on one row: two WHTs
+    (2 flops per amplitude per stage and plane), and two phases (the sign
+    sum, its scale, the complex rotation, sincos counted as 2)."""
+    return 8 * nq * dim + dim * (nq + 9) + dim * (nb + 9)
+
+
+def plan_flops(plan, nq):
+    """f32 operations of K2's plan on one row: 6 per amplitude for a
+    rotation, 4 for H, 2 for CY and CZ, none for CX and SWAP, then the
+    marginals (3 per amplitude for |ψ|², nq for the sums)."""
+    import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+
+    per_kind = {kfe.GATE_H: 4, kfe.GATE_CY: 2, kfe.GATE_CZ: 2}
+    dim = 1 << nq
+    return dim * (sum(6 if op[0] in kfe.ROTATION_KINDS
+                      else per_kind.get(op[0], 0) for op in plan) + 3 + nq)
+
+
 def exact_ideal_z(J, nq, steps, dt, h=1.0):
     """Independent check: ⟨Z_q⟩ of the Trotter circuit by complex128
     statevector simulation, gate by gate (RX(2h·dt) on every qubit, then
@@ -203,7 +286,6 @@ def frame_phases(card, cuda, device_model):
     import numpy as np
     import torch
 
-    import mlqem_tpu_torch.ops.kernels.evolve as kev
     import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
     from mlqem_tpu_torch import IsingLabelPipeline, KickedIsingEngine
     from mlqem_tpu_torch.ops.frame_trajectory import (frame_plan,
@@ -277,23 +359,24 @@ def frame_phases(card, cuda, device_model):
 
     k_ms, p_ms, kernel_ms, plain_ms = time_kernel_and_plain(
         run_kernel, run_plain, 1)
+    k2_bound = bound(4 * theta.numel() + 4 * FRAME_ROWS * NQ + 16 * len(plan),
+                     FRAME_ROWS * plan_flops(plan, NQ))
     del theta
     torch.cuda.empty_cache()
     print(f"evolve_frame_marginals nq={NQ} ops={len(plan)} rows={FRAME_ROWS}: "
           f"max|Δ|={big_err:.3e}; kernel {k_ms:.3f} ms "
           f"(runs {[round(x, 3) for x in kernel_ms]}), plain PyTorch "
-          f"{p_ms:.3f} ms (runs {[round(x, 3) for x in plain_ms]}) [{card}]")
+          f"{p_ms:.3f} ms (runs {[round(x, 3) for x in plain_ms]}); bound "
+          f"{k2_bound[0]:.3f} ms ({k2_bound[1]}) [{card}]")
 
     # -- 7. the frame pipeline at full width -----------------------------------
     J = rng.uniform(0.05, 0.6, size=FRAME_BATCH).astype(np.float32)
-    kev.evolve_fused.launches = 0
-    kfe.evolve_frame_marginals.launches = 0
+    reset_launches()
     ideal, noisy = pipe.generate(J, seed=0)
     torch.cuda.synchronize()
     launches = kfe.evolve_frame_marginals.launches
     print(f"frame path: 1 batch of {FRAME_BATCH} circuits x {N_TRAJ} "
-          f"trajectories, {SHOTS} shots: evolve_frame_marginals launches = "
-          f"{launches}, evolve_fused launches = {kev.evolve_fused.launches}")
+          f"trajectories, {SHOTS} shots: launches {read_launches()}")
     require(launches == 1, f"expected 1 K2 launch, got {launches}")
     for name, lab in (("ideal", ideal), ("noisy", noisy)):
         require(lab.shape == (FRAME_BATCH, NQ), f"{name} shape {lab.shape}")
@@ -353,7 +436,305 @@ def frame_phases(card, cuda, device_model):
     print(f"  (c') ideal arm (statevector, {FRAME_BATCH} circuits, + <Z>): "
           f"{split['ideal']:.1f} ms")
     return {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
-            "plain_ms": p_ms}
+            "plain_ms": p_ms, "bound_ms": k2_bound[0],
+            "bound_by": k2_bound[1], "library_ms": None}
+
+
+def lightcone_checks(card, cuda):
+    """Phase 9: K4 and K3 against their plain versions, and their times at
+    the light-cone path's shapes. Returns (K3, K4) records without their
+    launch counts."""
+    import torch
+
+    import mlqem_tpu_torch.ops.kernels.fused_step as kfs
+    import mlqem_tpu_torch.ops.kernels.wht as kwht
+    from mlqem_tpu_torch.ops.kicked_ising import _sign_tables
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+
+    def planes(rows, nq, unit=False):
+        re = torch.randn((rows, 2 ** nq), device=cuda, generator=gen)
+        im = torch.randn((rows, 2 ** nq), device=cuda, generator=gen)
+        if unit:
+            norm = (re * re + im * im).sum(dim=1, keepdim=True).sqrt_()
+            re.div_(norm)
+            im.div_(norm)
+        return re, im
+
+    def k4_check(nq, rows):
+        re, im = planes(rows, nq)
+        want = kwht.wht_planes_reference(re, im, nq)
+        kwht.wht_planes(re, im, nq)                    # in place
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip((re, im), want))
+        rel = max((g - w).abs().max().item() / w.abs().max().item()
+                  for g, w in zip((re, im), want))
+        print(f"K4 vs plain: w={nq} rows={rows} max|Δ|={err:.3e} "
+              f"(relative {rel:.3e})")
+        require(rel <= K4_TOL, f"K4 disagrees with its plain version (w={nq},"
+                f" rows={rows}): {rel} > {K4_TOL} relative")
+        return err
+
+    for nq, rows in [(1, 5), (5, 3), (8, 1001), (13, 33), (14, 7), (17, 3),
+                     (LC_W, 1)]:
+        k4_check(nq, rows)
+    k4_err = k4_check(LC_W, LC_CHUNK + 1)
+    torch.cuda.empty_cache()
+
+    def k3_args(nq, rows):
+        bit_pm, bond_par = _sign_tables(nq)
+        nb = bond_par.shape[1]
+        re, im = planes(rows, nq, unit=True)
+
+        def signs(k):
+            return (2.0 * torch.randint(0, 2, (rows, k), device=cuda,
+                                        generator=gen) - 1.0)
+
+        theta = torch.rand((rows, 1), device=cuda, generator=gen) * -1.1 - 0.1
+        return [re, im, signs(nq), signs(nb), theta,
+                torch.as_tensor(bit_pm, device=cuda),
+                torch.as_tensor(bond_par, device=cuda)]
+
+    def k3_check(nq, rows):
+        args = k3_args(nq, rows)
+        got = kfs.fused_trotter_step(*args, 2.0 * LC_H * LC_DT)
+        want = kfs.fused_trotter_step_reference(*args, 2.0 * LC_H * LC_DT)
+        torch.cuda.synchronize()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        print(f"K3 vs plain: w={nq} rows={rows} max|Δ|={err:.3e}")
+        require(err <= TOL, f"K3 disagrees with its plain version (w={nq}, "
+                f"rows={rows}): {err} > {TOL}")
+        return err, args
+
+    for nq, rows in [(3, 1001), (7, 4099), (10, 3001), (13, 257),
+                     (kfs.MAX_NQ, 33)]:
+        k3_check(nq, rows)
+    k3_err, args = k3_check(13, K3_TIME_ROWS)
+    theta_h = 2.0 * LC_H * LC_DT
+    k3_ms, k3_plain, k3_runs, k3_plain_runs = time_kernel_and_plain(
+        lambda: kfs.fused_trotter_step(*args, theta_h),
+        lambda: kfs.fused_trotter_step_reference(*args, theta_h), 2)
+    nb = args[3].shape[1]
+    k3_bound = bound(4 * sum(a.numel() for a in args) + 8 * args[0].numel(),
+                     K3_TIME_ROWS * step_flops(13, nb, 2 ** 13))
+    del args
+    print(f"fused_trotter_step w=13 rows={K3_TIME_ROWS}: max|Δ|={k3_err:.3e};"
+          f" kernel {k3_ms:.3f} ms (runs {[round(x, 3) for x in k3_runs]}), "
+          f"plain PyTorch {k3_plain:.3f} ms (runs "
+          f"{[round(x, 3) for x in k3_plain_runs]}); bound {k3_bound[0]:.3f} "
+          f"ms ({k3_bound[1]}) [{card}]")
+
+    k4 = {}
+    for rows in (LC_CHUNK, 1):
+        re, im = planes(rows, LC_W)
+        k_ms, p_ms, k_runs, p_runs = time_kernel_and_plain(
+            lambda: kwht.wht_planes(re, im, LC_W),
+            lambda: kwht.wht_planes_reference(re, im, LC_W), 1)
+        k_bound = bound(2 * 8 * re.numel(), 2 * 2 * LC_W * re.numel())
+        del re, im
+        torch.cuda.empty_cache()
+        gbs = 16 * rows * 2 ** LC_W / (k_ms * 1e-3) / 1e9
+        print(f"wht_planes w={LC_W} rows={rows} x 2 planes: kernel {k_ms:.3f} ms "
+              f"(runs {[round(x, 3) for x in k_runs]}; {gbs:.0f} GB/s of "
+              f"input+output), plain PyTorch {p_ms:.3f} ms (runs "
+              f"{[round(x, 3) for x in p_runs]}); bound {k_bound[0]:.3f} ms "
+              f"({k_bound[1]}) [{card}]")
+        k4[rows] = (k_ms, p_ms, k_bound)
+    k_ms, p_ms, k_bound = k4[LC_CHUNK]
+    return ({"max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
+             "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+             "library_ms": None},
+            {"max_abs_err": k4_err, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": k_bound[0], "bound_by": k_bound[1],
+             "library_ms": None})
+
+
+def lightcone_phases(card, cuda):
+    """Phases 9-12: K3 and K4 against their plain versions, the cross-check
+    on the audit values, demo1's configuration at w=21, and its timing.
+    Returns the (K3, K4) records."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import LightconeIsing, NoiseModel, configurable_device
+    from mlqem_tpu_torch.ops.lightcone import readout_affine
+    from mlqem_tpu_torch.workflows.demos import (DEMO1_CALIBRATED_SCALE,
+                                                 lightcone_crosscheck)
+
+    # -- 9. K4 and K3 vs their plain versions -------------------------------------
+    k3, k4 = lightcone_checks(card, cuda)
+
+    # -- 10. the cross-check against the audit values ------------------------
+    audit = np.load(os.path.join(ROOT, "docs", "demos", "results",
+                                 "audit_values_tpu.npz"))
+    require(int(audit["device_seed"]) == 1, "audit device_seed is not 1")
+    xck_j = tuple(float(x) for x in audit["J_values"])
+    xck_q = tuple(int(q) for q in audit["qubits"])
+    xck_h = float(audit["h"])
+    dev = configurable_device(LC_NQ, seed=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    xck = lightcone_crosscheck(
+        dev, nq=LC_NQ, steps=6, dt=float(audit["dt"]), h=xck_h,
+        J_values=xck_j, qubits=xck_q, n_traj=XCK_TRAJ,
+        reference={k: audit[k] for k in ("ideal", "nf1", "nf3")}, seed=1,
+        device=cuda)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    print(f"cross-check (100q, 6 steps, w=13, {XCK_TRAJ} realizations) vs the "
+          f"audit values: ideal max|Δ|={xck['ideal_max_diff']:.3e} (tol "
+          f"{xck['ideal_tol']}), noisy {xck['noisy_max_diff']} (tol "
+          f"{xck['noisy_tol']}), passed={xck['passed']}; launches {counts}; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    require(xck["passed"], "the light-cone cross-check failed")
+    require(counts["fused_trotter_step"] == 90 and counts["wht_planes"] == 0,
+            f"expected 90 K3 and 0 K4 launches, got {counts}")
+    k3["launches"] = counts["fused_trotter_step"]
+
+    # -- 11. demo1's configuration at w=21 -----------------------------------
+    nm = NoiseModel.from_device(dev, scale=DEMO1_CALIBRATED_SCALE)
+    J50 = np.random.RandomState(42).uniform(0.0, 0.66 * np.pi, 50
+                                            ).astype(np.float32)
+
+    def engine(n_traj, shots, **kw):
+        return LightconeIsing(dev, nq=LC_NQ, steps=LC_STEPS, device=cuda,
+                              dt=LC_DT, h=LC_H, n_traj=n_traj, shots=shots,
+                              noise_model=nm, **kw)
+
+    paths = []
+    for use_kernel in (None, False):       # None: the kernels, on the card
+        eng = engine(LC_CHUNK, None, use_kernel=use_kernel)
+        paths.append(eng.generate_stepwise(J50[1:2], qubits=(54,), seed=0))
+        del eng
+        torch.cuda.empty_cache()
+    path_err = max(float(np.abs(a - b).max()) for a, b in zip(*paths))
+    print(f"demo1 window q=54 (w={LC_W}), {LC_CHUNK} realizations, shots=None, "
+          f"same draws: kernel path vs plain path max|Δ|={path_err:.3e}")
+    require(path_err <= TOL, f"light-cone kernel path disagrees: {path_err}")
+
+    ideal_w = {}
+    for steps in (LC_STEPS, 6):
+        eng = LightconeIsing(dev, nq=LC_NQ, steps=steps, device=cuda,
+                             dt=LC_DT, h=xck_h, n_traj=1, shots=None,
+                             noise=False, readout=False)
+        ideal_w[2 * steps + 1] = eng.ideal_stepwise(np.asarray(xck_j), xck_q)
+        del eng
+    cone_err = float(np.abs(ideal_w[LC_W][:, :6] - ideal_w[13]).max())
+    audit_err = float(np.abs(ideal_w[LC_W][:, :6]
+                             - audit["ideal"][:, :6]).max())
+    print(f"cone exactness: ideal arm w={LC_W} (K4) vs w=13 (K3) over steps 1-6 "
+          f"max|Δ|={cone_err:.3e}; vs the audit ideal {audit_err:.3e}")
+    require(cone_err <= TOL, f"w={LC_W} and w=13 ideal arms differ: "
+            f"{cone_err}")
+    require(audit_err <= 1e-3, f"w={LC_W} ideal arm vs audit: {audit_err}")
+    torch.cuda.empty_cache()
+
+    eng_n = engine(NF1_TRAJ, NF1_SHOTS, t_chunk=LC_CHUNK)
+    eng_a = engine(NF3_TRAJ, NF3_SHOTS, t_chunk=LC_CHUNK)
+
+    def nf1(J, seed=0):
+        return eng_n.generate_stepwise(J, 1.0, LC_QUBITS, seed=seed,
+                                       want_ideal=True, readout_correct=True)
+
+    def nf3(J, seed=1):
+        return eng_a.generate_stepwise(J, 3.0, LC_QUBITS, seed=seed,
+                                       want_ideal=False, readout_correct=True)
+
+    reset_launches()
+    noisy, ideal = nf1(J50[1:2])
+    torch.cuda.synchronize()
+    c1 = read_launches()
+    reset_launches()
+    amp, _ = nf3(J50[1:2])
+    torch.cuda.synchronize()
+    c3 = read_launches()
+    print(f"demo1 circuit J={J50[1]:.4f}: nf1 arm launches {c1}; nf3 arm "
+          f"launches {c3}")
+    require(c1["wht_planes"] == 2 * LC_STEPS * 5 * (NF1_TRAJ // LC_CHUNK + 1)
+            and c1["fused_trotter_step"] == 0, f"nf1 launches {c1}")
+    require(c3["wht_planes"] == 2 * LC_STEPS * 5 * (NF3_TRAJ // LC_CHUNK)
+            and c3["fused_trotter_step"] == 0, f"nf3 launches {c3}")
+    k4["launches"] = c1["wht_planes"] + c3["wht_planes"]
+    for name, lab in (("ideal", ideal), ("nf1", noisy), ("nf3", amp)):
+        require(lab.shape == (1, LC_STEPS, 5), f"{name} shape {lab.shape}")
+        require(bool(np.isfinite(lab).all()), f"{name} has non-finite values")
+    require(bool((np.abs(ideal) <= 1.0 + 1e-6).all()), "ideal leaves [-1, 1]")
+    for qi, q in enumerate(LC_QUBITS):
+        a, b = readout_affine(eng_n.window_tables(q)["confusion"])
+        lo, hi = sorted(((-1.0 - b) / a, (1.0 - b) / a))
+        for name, lab in (("nf1", noisy), ("nf3", amp)):
+            v = lab[:, :, qi]
+            require(bool(((v >= lo - 1e-6) & (v <= hi + 1e-6)).all()),
+                    f"{name} q={q} leaves its TREX bounds [{lo}, {hi}]")
+    gap = float(np.abs(noisy - ideal).mean())
+    print(f"demo1 circuit: ideal step 10 {np.round(ideal[0, -1], 4).tolist()}"
+          f", nf1 {np.round(noisy[0, -1], 4).tolist()}, nf3 "
+          f"{np.round(amp[0, -1], 4).tolist()}; mean |nf1 - ideal| = "
+          f"{gap:.4f}")
+    require(gap > 1e-3, "noise had no effect on the light-cone path")
+
+    # -- 12. timing ----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    secs = {}
+    for name, arm in (("nf1 (+ ideal)", nf1), ("nf3", nf3)):
+        runs = []
+        for k in range(2, 5):                  # after the warm-up above
+            t0 = time.perf_counter()
+            arm(J50[k:k + 1])                  # ends in a host copy
+            runs.append(time.perf_counter() - t0)
+        secs[name] = statistics.median(runs)
+        print(f"light-cone {name} arm: {secs[name]:.3f} s per circuit "
+              f"(median of {len(runs)}; runs "
+              f"{[round(x, 3) for x in runs]}) [{card}]")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"light-cone peak device memory: {peak_gib:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) [{card}]")
+
+    t0 = time.perf_counter()
+    for q in LC_QUBITS:
+        tw = eng_n.window_tables(q)
+    tables_ms = (time.perf_counter() - t0) * 1e3
+    tw = eng_n.window_tables(54)
+    probs = torch.as_tensor(tw["probs"], device=cuda)
+    a, b = readout_affine(tw["confusion"])
+    theta_j = torch.as_tensor(-2.0 * LC_DT * J50[1:2], device=cuda)
+    split = {}
+    for seed in range(3):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(seed)
+        sums = {}
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def mark(stage):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            sums[stage] = sums.get(stage, 0.0) + (now - last[0]) * 1e3
+            last[0] = now
+
+        eng_n.run_noisy(tw, theta_j, probs, a, b, gen, mark)
+        for stage, ms in sums.items():
+            split.setdefault(stage, []).append(ms)
+    split = {k: statistics.median(v) for k, v in split.items()}
+    print(f"light-cone stage split, one window chunk ({LC_CHUNK} "
+          f"realizations x 2^{LC_W}, {LC_STEPS} steps; median of 3, "
+          f"synchronized per stage) [{card}]:")
+    print(f"  (once per window and call, host) window tables: "
+          f"{tables_ms / len(LC_QUBITS):.1f} ms")
+    print(f"  frame pass (draws + frame walk): {split['frame']:.1f} ms")
+    print(f"  K4 WHTs ({2 * LC_STEPS} calls): {split['wht']:.1f} ms")
+    print(f"  RX + ZZ phases (sign matmuls, cos/sin, rotations): "
+          f"{split['phase']:.1f} ms")
+    print(f"  <Z_obs> per step: {split['z']:.1f} ms")
+    print(f"  flip + readout + shots + mean: {split['shots']:.1f} ms")
+    per_circuit = secs["nf1 (+ ideal)"] + secs["nf3"]
+    print(f"derived, not measured end to end: the demo1 artifact's engine "
+          f"arms (50 circuits + the J00 row re-evolved) = 51 x "
+          f"{per_circuit:.3f} s = {51 * per_circuit:.1f} s [{card}]")
+    del eng_n, eng_a
+    torch.cuda.empty_cache()
+    return k3, k4
 
 
 def main():
@@ -379,6 +760,8 @@ def main():
 
     import mlqem_tpu_torch.ops.kernels.evolve as kev
     import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+    import mlqem_tpu_torch.ops.kernels.fused_step as kfs
+    import mlqem_tpu_torch.ops.kernels.wht as kwht
     from mlqem_tpu_torch import KickedIsingEngine, configurable_device
     from mlqem_tpu_torch.utils.build import library_path
 
@@ -389,13 +772,13 @@ def main():
         return time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = dict(zip(("evolve", "frame_evolve"),
-                          pool.map(timed_build, (kev.load_library,
-                                                 kfe.load_library))))
-    print(f"build: evolve.cu and frame_evolve.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s (in parallel; "
-          f"{builds['evolve']:.2f} s and {builds['frame_evolve']:.2f} s)")
+    loaders = {"evolve": kev.load_library, "frame_evolve": kfe.load_library,
+               "fused_step": kfs.load_library, "wht": kwht.load_library}
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        builds = dict(zip(loaders, pool.map(timed_build, loaders.values())))
+    print(f"build: {', '.join(n + '.cu' for n in builds)} built and loaded "
+          f"in {time.perf_counter() - t0:.2f} s (in parallel; "
+          + ", ".join(f"{n} {t:.2f} s" for n, t in builds.items()) + ")")
     for name in builds:
         log = library_path(name) + ".log"
         if os.path.exists(log):
@@ -432,11 +815,14 @@ def main():
 
     k_ms, p_ms, kernel_ms, plain_ms = time_kernel_and_plain(
         run_kernel, run_plain, 2)
+    k1_bound = bound(4 * sum(a.numel() for a in args) + 8 * args[0].numel(),
+                     NOISY_ROWS * STEPS * step_flops(NQ, nb, 2 ** NQ))
     del args
     print(f"evolve_fused nq={NQ} steps={STEPS} rows={NOISY_ROWS}: "
           f"max|Δ|={big_err:.3e}; kernel {k_ms:.3f} ms "
           f"(runs {[round(x, 3) for x in kernel_ms]}), plain PyTorch "
-          f"{p_ms:.3f} ms (runs {[round(x, 3) for x in plain_ms]}) [{card}]")
+          f"{p_ms:.3f} ms (runs {[round(x, 3) for x in plain_ms]}); bound "
+          f"{k1_bound[0]:.3f} ms ({k1_bound[1]}) [{card}]")
 
     # -- 4. main path ------------------------------------------------------------
     device_model = configurable_device(NQ, seed=0)
@@ -446,15 +832,12 @@ def main():
     tables_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     J = rng.uniform(0.05, 0.6, size=BATCH).astype(np.float32)
-    kev.evolve_fused.launches = 0
-    kfe.evolve_frame_marginals.launches = 0
+    reset_launches()
     ideal, noisy = eng.generate(J, seed=0)
     torch.cuda.synchronize()
     launches = kev.evolve_fused.launches
     print(f"main path: 1 batch of {BATCH} circuits x {N_TRAJ} trajectories, "
-          f"{SHOTS} shots: evolve_fused launches = {launches}, "
-          f"evolve_frame_marginals launches = "
-          f"{kfe.evolve_frame_marginals.launches}")
+          f"{SHOTS} shots: launches {read_launches()}")
     require(launches == 2, f"expected 2 kernel launches, got {launches}")
     for name, lab in (("ideal", ideal), ("noisy", noisy)):
         require(lab.shape == (BATCH, NQ), f"{name} shape {lab.shape}")
@@ -503,18 +886,23 @@ def main():
     del eng
     torch.cuda.empty_cache()
     k2 = frame_phases(card, cuda, device_model)
+    torch.cuda.empty_cache()
+    k3, k4 = lightcone_phases(card, cuda)
 
-    record = {"kernels": [{
-        "name": "evolve_fused", "route": "cuda",
-        "source": "mlqem_tpu_torch/csrc/evolve.cu",
-        "replaces": "mlqem_tpu/ops/pallas/evolve.py:107",
-        "launches": launches, "max_abs_err": big_err,
-        "ms": k_ms, "plain_ms": p_ms}, {
-        "name": "evolve_frame_marginals", "route": "cuda",
-        "source": "mlqem_tpu_torch/csrc/frame_evolve.cu",
-        "replaces": "mlqem_tpu/ops/pallas/frame_evolve.py:134",
-        "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
-        "ms": k2["ms"], "plain_ms": k2["plain_ms"]}]}
+    k1 = {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
+          "plain_ms": p_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+          "library_ms": None}
+    kernels = [
+        ("evolve_fused", "evolve.cu", "evolve.py:107", k1),
+        ("evolve_frame_marginals", "frame_evolve.cu", "frame_evolve.py:134",
+         k2),
+        ("fused_trotter_step", "fused_step.cu", "fused_step.py:110", k3),
+        ("wht_planes", "wht.cu", "wht.py:55", k4)]
+    record = {"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"mlqem_tpu_torch/csrc/{src}",
+         "replaces": f"mlqem_tpu/ops/pallas/{tpu}", **rec}
+        for name, src, tpu, rec in kernels]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 
 A port of the JAX package ``mlqem_tpu`` to PyTorch, with its TPU kernels
 as hand-written CUDA kernels for Hopper: the kicked-Ising evolution
-(``csrc/evolve.cu``) and the generic Pauli-frame evolution
-(``csrc/frame_evolve.cu``). It mirrors the JAX package's module paths and
+(``csrc/evolve.cu``), the generic Pauli-frame evolution
+(``csrc/frame_evolve.cu``), one Trotter step (``csrc/fused_step.cu``) and
+the Walsh–Hadamard transform over device-memory planes (``csrc/wht.cu``),
+the last two on the light-cone engine's path. It mirrors the JAX package's module paths and
 imports neither JAX nor ``mlqem_tpu``.
 
 Quick start::
@@ -19,6 +21,12 @@ Quick start::
                               steps=4, device="cuda", method="frame",
                               n_traj=32)
     ideal, noisy = pipe.generate(J_values, seed=0)
+
+    lc = LightconeIsing(configurable_device(100, seed=1), nq=100, steps=10,
+                        device="cuda", dt=0.5, h=0.66 * np.pi, n_traj=1024,
+                        shots=49, t_chunk=128)
+    noisy, ideal = lc.generate_stepwise(J_values, qubits=(11, 25, 39, 54,
+                                                          94))
 """
 
 from .circuits.circuit import Circuit
@@ -26,8 +34,9 @@ from .device.model import DeviceModel
 from .device.noise import NoiseModel
 from .device.registry import configurable_device, get_device
 from .ops.kicked_ising import KickedIsingEngine
+from .ops.lightcone import LightconeIsing
 from .parallel.datagen import IsingLabelPipeline, make_ising_template
 
 __all__ = ["Circuit", "DeviceModel", "IsingLabelPipeline",
-           "KickedIsingEngine", "NoiseModel", "configurable_device",
-           "get_device", "make_ising_template"]
+           "KickedIsingEngine", "LightconeIsing", "NoiseModel",
+           "configurable_device", "get_device", "make_ising_template"]

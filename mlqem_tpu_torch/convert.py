@@ -26,7 +26,7 @@ def device_from_jax_dict(d: dict) -> DeviceModel:
 
 def engine_tables_from_numpy(bond_probs: np.ndarray,
                              confusion: Optional[np.ndarray],
-                             device: Union[str, torch.device] = "cpu"
+                             device: Union[str, torch.device]
                              ) -> EngineTables:
     """Engine tables from the JAX engine's ``_bond_probs`` [n_bonds, 16]
     and ``_confusion`` [nq, 2, 2] (or None).
@@ -78,7 +78,7 @@ def template_from_numpy(gate_ids: np.ndarray, qubits: np.ndarray,
 
 def pipeline_tables_from_numpy(pauli_probs: np.ndarray,
                                confusion: Optional[np.ndarray],
-                               device: Union[str, torch.device] = "cpu"
+                               device: Union[str, torch.device]
                                ) -> PipelineTables:
     """Pipeline tables from a JAX pipeline's ``_pauli_probs`` [L, 16] and
     ``_confusion`` [nq, 2, 2] (or None).

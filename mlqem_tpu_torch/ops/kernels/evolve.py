@@ -13,26 +13,13 @@ import ctypes
 import functools
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from ...utils.build import build_library
+from .wht import wht  # the plain butterfly, re-exported
 
 MAX_NQ = 13
 _MAX_SMEM_BYTES = 232448      # per-block shared memory on sm_90
-_INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
-
-
-def wht(state: torch.Tensor, nq: int) -> torch.Tensor:
-    """H⊗nq over the last amplitude axis [..., 2^n] (n butterfly passes)."""
-    batch = state.shape[:-1]
-    dim = state.shape[-1]
-    for q in range(nq):
-        v = state.reshape(batch + (dim // (2 ** (q + 1)), 2, 2 ** q))
-        a, b = v[..., 0, :], v[..., 1, :]
-        state = torch.stack(((a + b) * _INV_SQRT2, (a - b) * _INV_SQRT2),
-                            dim=-2).reshape(batch + (dim,))
-    return state
 
 
 def evolve_fused_reference(re, im, kick_signs, bond_signs, theta_j_col,

@@ -23,7 +23,7 @@ Stage (a), the noise tables, is built once in the constructor.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,10 +32,12 @@ from ..device.model import DeviceModel
 from ..device.noise import NoiseModel
 from . import sampling
 from .density import apply_readout_confusion
-from .kernels.evolve import evolve_fused, evolve_fused_reference, wht
+from .kernels.evolve import evolve_fused, evolve_fused_reference
+from .kernels.wht import check_ieee_matmul, hadamard_dense, wht
 from .trajectory import compose_pauli_channel, pauli_channel_probs
 
-__all__ = ["EngineTables", "KickedIsingEngine", "wht"]
+__all__ = ["EngineTables", "KickedIsingEngine", "propagate_frames", "wht",
+           "wht_mm"]
 
 
 def _bonds(nq: int) -> Tuple[List[Tuple[int, int]], List[Tuple[int, int]]]:
@@ -51,17 +53,97 @@ def _sign_tables(nq: int) -> Tuple[np.ndarray, np.ndarray]:
     j = np.arange(2 ** nq)
     bit_pm = 2.0 * ((j[:, None] >> np.arange(nq)[None, :]) & 1
                     ).astype(np.float32) - 1.0
-    bond_par = np.stack([bit_pm[:, a] * bit_pm[:, b] for a, b in even + odd],
-                        axis=1)
+    bond_par = np.empty((2 ** nq, len(even + odd)), np.float32)
+    for k, (a, b) in enumerate(even + odd):
+        bond_par[:, k] = bit_pm[:, a] * bit_pm[:, b]
     return bit_pm, bond_par
 
 
-def _hadamard_dense(nq: int) -> np.ndarray:
-    """Dense ±1/√2^n Hadamard [2^n, 2^n] float32 (host constant)."""
-    h = np.array([[1.0]], dtype=np.float64)
-    for _ in range(nq):
-        h = np.block([[h, h], [h, -h]])
-    return (h / np.sqrt(2.0 ** nq)).astype(np.float32)
+def wht_mm(state: torch.Tensor, nq: int, radix: int = 7) -> torch.Tensor:
+    """H⊗nq over the last axis as dense Hadamard matmuls, at IEEE f32.
+
+    Equal to :func:`wht`, but H⊗nq is factored into ⌈nq/radix⌉ Kronecker
+    slabs of ≤ 2^radix, each contracted with a dense ±1/√d Hadamard: the
+    JAX light-cone engine's WHT at windows of 12 qubits and more. Complex
+    states take two real matmuls per slab (H is real).
+    """
+    parts: List[int] = []
+    rem = nq
+    while rem > 0:
+        c = min(radix, rem)
+        parts.append(c)
+        rem -= c
+    if len(parts) > 8:   # the JAX version's einsum letters cover ≤ 8 slabs
+        raise ValueError(f"wht_mm supports nq <= {8 * radix} at "
+                         f"radix={radix} (got nq={nq}); raise radix or "
+                         "use the butterfly wht()")
+    check_ieee_matmul(state)
+    batch = state.shape[:-1]
+    dims = tuple(2 ** c for c in parts)
+
+    def real_pass(x):
+        x = x.reshape(batch + dims)
+        for i, c in enumerate(parts):
+            h = torch.as_tensor(hadamard_dense(c), device=x.device)
+            axis = len(batch) + i
+            x = (x.movedim(axis, -1) @ h).movedim(-1, axis)
+        return x.reshape(batch + (2 ** nq,))
+
+    if state.is_complex():
+        return torch.complex(real_pass(state.real), real_pass(state.imag))
+    return real_pass(state)
+
+
+def propagate_frames(draws: torch.Tensor, bonds: Sequence[Tuple[int, int]],
+                     nq: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Commute the drawn noise Paulis to the end of the circuit.
+
+    draws [steps, rows, n_bonds, 2]: the Pauli 4·p_a + p_b after each of a
+    bond's two CX, bonds in application order. Returns f32 ±1 kick signs
+    [rows, steps, nq] (each step's RX flips where the frame has Z/Y), bond
+    signs [rows, steps, n_bonds] (a bond's RZ flips where the frame has X/Y
+    on its target) and the frame's int32 X mask after each step
+    [steps, rows]. The frame is int32 X and Z bit masks over the qubits.
+    """
+    S, rows, nb, _ = draws.shape
+    pa, pb = draws // 4, draws % 4
+    a_idx = torch.tensor([a for a, _ in bonds], dtype=torch.int32,
+                         device=draws.device)[:, None]
+    b_idx = torch.tensor([b for _, b in bonds], dtype=torch.int32,
+                         device=draws.device)[:, None]
+    # pauli code p (0..3 per qubit): x-part p∈{1,2}, z-part p∈{2,3}
+    noise_x = ((((pa == 1) | (pa == 2)).int() << a_idx)
+               | (((pb == 1) | (pb == 2)).int() << b_idx))
+    noise_z = ((((pa == 2) | (pa == 3)).int() << a_idx)
+               | (((pb == 2) | (pb == 3)).int() << b_idx))
+    del pa, pb
+    qs = torch.arange(nq, dtype=torch.int32, device=draws.device)
+    x = torch.zeros(rows, dtype=torch.int32, device=draws.device)
+    z = torch.zeros_like(x)
+    kick = torch.empty((rows, S, nq), dtype=torch.float32,
+                       device=draws.device)
+    bond = torch.empty((rows, S, nb), dtype=torch.float32,
+                       device=draws.device)
+    x_after = torch.empty((S, rows), dtype=torch.int32, device=draws.device)
+    for s in range(S):
+        # rx(θh) on every qubit flips iff the frame has Z/Y there
+        kick[:, s] = 1 - 2 * ((z[:, None] >> qs) & 1)
+        for k, (a, b) in enumerate(bonds):
+            # first CX(a, b): X_a → X_a X_b, Z_b → Z_a Z_b; then noise
+            x ^= ((x >> a) & 1) << b
+            z ^= ((z >> b) & 1) << a
+            x ^= noise_x[s, :, k, 0]
+            z ^= noise_z[s, :, k, 0]
+            # rz(θJ) on target b flips iff the frame has X/Y on b
+            bond[:, s, k] = 1 - 2 * ((x >> b) & 1)
+            # second CX(a, b) and its noise
+            x ^= ((x >> a) & 1) << b
+            z ^= ((z >> b) & 1) << a
+            x ^= noise_x[s, :, k, 1]
+            z ^= noise_z[s, :, k, 1]
+        x_after[s] = x
+    return kick, bond, x_after
 
 
 @dataclasses.dataclass
@@ -168,47 +250,15 @@ class KickedIsingEngine:
         draws [steps, rows, n_bonds, 2] (Pauli 4·p_a + p_b after each of a
         bond's two CX). Returns f32 ±1 kick signs [rows, steps·nq], bond
         signs [rows, steps·n_bonds] (the kernel's layout) and the final
-        X-flip signs [rows, nq] that correct ⟨Z_q⟩. The frame is int32 X
-        and Z bit masks over the qubits.
+        X-flip signs [rows, nq] that correct ⟨Z_q⟩
+        (:func:`propagate_frames`).
         """
         S, rows, nb, _ = draws.shape
-        nq = self.nq
-        pa, pb = draws // 4, draws % 4
-        a_idx = torch.tensor([a for a, _ in self.bonds], dtype=torch.int32,
-                             device=draws.device)[:, None]
-        b_idx = torch.tensor([b for _, b in self.bonds], dtype=torch.int32,
-                             device=draws.device)[:, None]
-        # pauli code p (0..3 per qubit): x-part p∈{1,2}, z-part p∈{2,3}
-        noise_x = ((((pa == 1) | (pa == 2)).int() << a_idx)
-                   | (((pb == 1) | (pb == 2)).int() << b_idx))
-        noise_z = ((((pa == 2) | (pa == 3)).int() << a_idx)
-                   | (((pb == 2) | (pb == 3)).int() << b_idx))
-        del pa, pb
-        qs = torch.arange(nq, dtype=torch.int32, device=draws.device)
-        x = torch.zeros(rows, dtype=torch.int32, device=draws.device)
-        z = torch.zeros_like(x)
-        kick = torch.empty((rows, S, nq), dtype=torch.float32,
-                           device=draws.device)
-        bond = torch.empty((rows, S, nb), dtype=torch.float32,
-                           device=draws.device)
-        for s in range(S):
-            # rx(θh) on every qubit flips iff the frame has Z/Y there
-            kick[:, s] = 1 - 2 * ((z[:, None] >> qs) & 1)
-            for k, (a, b) in enumerate(self.bonds):
-                # first CX(a, b): X_a → X_a X_b, Z_b → Z_a Z_b; then noise
-                x ^= ((x >> a) & 1) << b
-                z ^= ((z >> b) & 1) << a
-                x ^= noise_x[s, :, k, 0]
-                z ^= noise_z[s, :, k, 0]
-                # rz(θJ) on target b flips iff the frame has X/Y on b
-                bond[:, s, k] = 1 - 2 * ((x >> b) & 1)
-                # second CX(a, b) and its noise
-                x ^= ((x >> a) & 1) << b
-                z ^= ((z >> b) & 1) << a
-                x ^= noise_x[s, :, k, 1]
-                z ^= noise_z[s, :, k, 1]
-        flip = (1 - 2 * ((x[:, None] >> qs) & 1)).float()
-        return kick.reshape(rows, S * nq), bond.reshape(rows, S * nb), flip
+        kick, bond, x_after = propagate_frames(draws, self.bonds, self.nq)
+        qs = torch.arange(self.nq, dtype=torch.int32, device=draws.device)
+        flip = (1 - 2 * ((x_after[-1][:, None] >> qs) & 1)).float()
+        return (kick.reshape(rows, S * self.nq), bond.reshape(rows, S * nb),
+                flip)
 
     # ------------------------------------------------------------------
     # (c) evolution

@@ -26,7 +26,7 @@ def _sim_width(num_qubits: int) -> int:
     return max(num_qubits, 2)
 
 
-def zero_state(num_qubits: int, batch_shape=(), device="cpu",
+def zero_state(num_qubits: int, batch_shape=(), device="cuda",
                dtype=COMPLEX_DTYPE) -> torch.Tensor:
     n = _sim_width(num_qubits)
     state = torch.zeros(tuple(batch_shape) + (2 ** n,), dtype=dtype,
@@ -89,10 +89,11 @@ def apply_circuit(state: torch.Tensor, ct: CircuitTensor) -> torch.Tensor:
     return out.reshape(batch + (dim,))
 
 
-def statevector(ct: CircuitTensor, device="cpu") -> torch.Tensor:
+def statevector(ct: CircuitTensor, device="cuda") -> torch.Tensor:
     """|ψ⟩ = U_circuit |0…0⟩: complex64 [..., 2**n] for the ct's batch.
 
-    Runs on ``params``' device when it is a tensor, else on ``device``.
+    Runs on ``params``' device when it is a tensor, else on ``device`` (the
+    card unless the caller asks for the CPU).
     """
     if torch.is_tensor(ct.params):
         device = ct.params.device
@@ -163,7 +164,7 @@ def all_z_expectation(probs: torch.Tensor, num_qubits: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # High-level batched entry points
 # ---------------------------------------------------------------------------
-def batch_statevectors(ct: CircuitTensor, device="cpu") -> torch.Tensor:
+def batch_statevectors(ct: CircuitTensor, device="cuda") -> torch.Tensor:
     """Statevectors for a batch: gate_ids[B, L] → complex64 [B, 2**n]."""
     return statevector(ct, device)
 
@@ -172,7 +173,7 @@ def ideal_expectation_values(circuits: Union[Sequence[Circuit],
                                              CircuitTensor],
                              observables: Union[Sequence[PauliSum],
                                                 PauliSum],
-                             device="cpu") -> np.ndarray:
+                             device="cuda") -> np.ndarray:
     """Exact ⟨O⟩ per circuit, as numpy: one observable for all circuits
     or one per circuit."""
     ct = circuits if isinstance(circuits, CircuitTensor) \

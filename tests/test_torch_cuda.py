@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from mlqem_tpu_torch import (IsingLabelPipeline, KickedIsingEngine,
-                             configurable_device)
+                             LightconeIsing, configurable_device)
 from mlqem_tpu_torch.ops.kernels import evolve as kev
 from mlqem_tpu_torch.ops.kernels import frame_evolve as fe
+from mlqem_tpu_torch.ops.kernels import fused_step as kfs
+from mlqem_tpu_torch.ops.kernels import wht as kwht
 from mlqem_tpu_torch.ops.kicked_ising import _sign_tables
 
 pytestmark = pytest.mark.cuda
@@ -153,4 +155,105 @@ def test_frame_pipeline_kernel_matches_plain_path(cuda_device):
         assert fe.evolve_frame_marginals.launches == before + use_kernel
     for got, want in zip(*out):
         assert got.shape == (8, 10)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("nq,rows", [(1, 3), (5, 1), (8, 33), (13, 7),
+                                     (14, 3), (17, 2), (21, 1)])
+def test_wht_kernel_matches_reference(nq, rows, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(nq)
+    re = torch.randn((rows, 2 ** nq), device=cuda_device, generator=g)
+    im = torch.randn((rows, 2 ** nq), device=cuda_device, generator=g)
+    want = kwht.wht_planes_reference(re, im, nq)
+    before = kwht.wht_planes.launches
+    got = kwht.wht_planes(re, im, nq)
+    torch.cuda.synchronize()
+    assert kwht.wht_planes.launches == before + 1
+    assert got[0] is re and got[1] is im
+    for g_, w_ in zip(got, want):
+        assert (g_ - w_).abs().max().item() <= 2e-6 * w_.abs().max().item()
+
+
+def test_wht_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    re = torch.zeros((2, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="shape"):
+        kwht.wht_planes(re, torch.zeros((2, 8), device=cuda_device), 4)
+    with pytest.raises(TypeError):
+        kwht.wht_planes(re, re.double(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        kwht.wht_planes(re, torch.zeros((16, 2), device=cuda_device).t(), 4)
+    with pytest.raises(ValueError, match="distinct"):
+        kwht.wht_planes(re, re, 4)
+    with pytest.raises(ValueError, match="nq"):
+        kwht.wht_planes(re, torch.zeros_like(re), 31)
+
+
+def _step_inputs(nq, rows, device, seed=0):
+    rng = np.random.default_rng(seed)
+    bit_pm, bond_par = _sign_tables(nq)
+    nb = bond_par.shape[1]
+    re = rng.normal(size=(rows, 2 ** nq))
+    im = rng.normal(size=(rows, 2 ** nq))
+    norm = np.sqrt((re ** 2 + im ** 2).sum(axis=1, keepdims=True))
+    arrays = [re / norm, im / norm, rng.choice([-1., 1.], size=(rows, nq)),
+              rng.choice([-1., 1.], size=(rows, nb)),
+              rng.uniform(-1.2, -0.1, size=(rows, 1)), bit_pm, bond_par]
+    return [torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                            device=device) for a in arrays]
+
+
+@pytest.mark.parametrize("nq,rows", [(1, 2), (3, 5), (7, 33), (10, 1000),
+                                     (13, 17), (14, 3)])
+def test_step_kernel_matches_reference(nq, rows, cuda_device):
+    args = _step_inputs(nq, rows, cuda_device)
+    before = kfs.fused_trotter_step.launches
+    got = kfs.fused_trotter_step(*args, 0.9)
+    want = kfs.fused_trotter_step_reference(*args, 0.9)
+    torch.cuda.synchronize()
+    assert kfs.fused_trotter_step.launches == before + 1
+    for g_, w_ in zip(got, want):
+        assert (g_ - w_).abs().max().item() <= 1e-5
+
+
+def test_step_kernel_poisons_output_on_non_sign_tables(cuda_device):
+    args = _step_inputs(6, 8, cuda_device)
+    args[6] = args[6] * 0.5
+    re, im = kfs.fused_trotter_step(*args, 0.5)
+    assert torch.isnan(re).all() and torch.isnan(im).all()
+
+
+def test_step_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    args = _step_inputs(6, 8, cuda_device)
+    bad = list(args)
+    bad[5] = args[5].t().contiguous()
+    with pytest.raises(ValueError, match="bit_pm has shape"):
+        kfs.fused_trotter_step(*bad, 0.5)
+    bad = list(args)
+    bad[2] = args[2].cpu()
+    with pytest.raises(ValueError, match="kick_signs is on cpu"):
+        kfs.fused_trotter_step(*bad, 0.5)
+    with pytest.raises(ValueError, match="nq"):
+        kfs.fused_trotter_step(*_step_inputs(15, 1, cuda_device), 0.5)
+
+
+@pytest.mark.parametrize("nq,steps", [(12, 3), (20, 7)])
+def test_lightcone_kernel_matches_plain_path(nq, steps, cuda_device):
+    """w=7 runs through K3, w=15 through K4; the same draws on both."""
+    J = np.array([0.2, 0.5], np.float32)
+    out, launches = [], []
+    for use_kernel in (True, False):
+        lc = LightconeIsing(configurable_device(nq, seed=1), nq=nq,
+                            steps=steps, device=cuda_device, dt=0.5, h=1.3,
+                            n_traj=16, t_chunk=8, shots=None,
+                            use_kernel=use_kernel)
+        before = (kfs.fused_trotter_step.launches, kwht.wht_planes.launches)
+        out.append(lc.generate_stepwise(J, qubits=(0, nq // 2), seed=4))
+        launches.append((kfs.fused_trotter_step.launches - before[0],
+                         kwht.wht_planes.launches - before[1]))
+    # 2 windows x steps x (2 noisy chunks + the ideal arm)
+    calls = 2 * steps * 3
+    assert launches[0] == ((calls, 0) if 2 * steps + 1 <= kfs.MAX_NQ
+                           else (0, 2 * calls))
+    assert launches[1] == (0, 0)
+    for got, want in zip(*out):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

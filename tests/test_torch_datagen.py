@@ -55,7 +55,7 @@ def test_labels_match_jax_on_shared_draws(method, nq, readout, h, rng,
                                jpipe._pauli_probs, atol=1e-7, rtol=0)
     assert (pipe.tables.confusion is None) == (jpipe._confusion is None)
     pipe.tables = pipeline_tables_from_numpy(jpipe._pauli_probs,
-                                             jpipe._confusion)
+                                             jpipe._confusion, device="cpu")
     # mostly identity, plus a share of uniform Paulis on every op
     draws = rng.integers(0, 16, size=(B, 8, pipe.ct_struct.max_ops)
                          ).astype(np.int32)

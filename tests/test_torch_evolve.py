@@ -14,8 +14,8 @@ from mlqem_tpu.ops.kicked_ising import wht as j_wht
 from mlqem_tpu.ops.pallas.evolve import evolve_fused as j_evolve_fused
 
 from mlqem_tpu_torch.ops.kernels import evolve as kev
-from mlqem_tpu_torch.ops.kicked_ising import (_bonds, _hadamard_dense,
-                                              _sign_tables, wht)
+from mlqem_tpu_torch.ops.kernels.wht import hadamard_dense
+from mlqem_tpu_torch.ops.kicked_ising import _bonds, _sign_tables, wht
 
 
 def _tables(nq):
@@ -84,7 +84,7 @@ def test_wht_matches_jax_nq10(rng):
 @pytest.mark.parametrize("nq", [1, 3, 6])
 def test_wht_is_dense_hadamard(nq, rng):
     x = rng.normal(size=(4, 2 ** nq)).astype(np.float32)
-    want = x.astype(np.float64) @ _hadamard_dense(nq).astype(np.float64)
+    want = x.astype(np.float64) @ hadamard_dense(nq).astype(np.float64)
     got = wht(torch.as_tensor(x), nq).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 

@@ -77,7 +77,8 @@ def test_labels_match_jax_without_shots(nq, noise_scale, readout, rng,
     np.testing.assert_allclose(eng.tables.bond_probs.numpy(),
                                jeng._bond_probs, atol=1e-7, rtol=0)
     assert (eng.tables.confusion is None) == (jeng._confusion is None)
-    eng.tables = engine_tables_from_numpy(jeng._bond_probs, jeng._confusion)
+    eng.tables = engine_tables_from_numpy(jeng._bond_probs, jeng._confusion,
+                                          device="cpu")
     # mostly identity (no error), plus a share of uniform Paulis so every
     # frame path is exercised
     draws = _draws(rng, S, B * T, nq - 1)

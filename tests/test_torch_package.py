@@ -51,17 +51,18 @@ def test_ast_scan_catches_a_jax_import(tmp_path):
 def test_exports():
     for name in ("KickedIsingEngine", "configurable_device", "get_device",
                  "NoiseModel", "Circuit", "IsingLabelPipeline",
-                 "make_ising_template"):
+                 "make_ising_template", "LightconeIsing"):
         assert hasattr(mlqem_tpu_torch, name)
 
 
-def _check_kernel_source(name, entry):
+def _check_kernel_source(name, entry, trig=True):
     src = os.path.join(build.CSRC_DIR, f"{name}.cu")
     assert os.path.isfile(src)
     with open(src) as f:
         text = f.read()
     assert f'extern "C" int {entry}' in text
-    assert "sincosf(" in text
+    assert text.startswith("// ") and "Replaces mlqem_tpu/ops/pallas/" in text
+    assert ("sincosf(" in text) == trig
     for fast in ("__sinf", "__cosf", "__sincosf", "__expf", "use_fast_math"):
         assert fast not in text
     flags = " ".join(build.NVCC_FLAGS)
@@ -77,6 +78,11 @@ def test_kernel_source_and_build_flags():
 
 def test_frame_kernel_source_and_build_flags():
     _check_kernel_source("frame_evolve", "evolve_frame_marginals_launch")
+
+
+def test_step_and_wht_kernel_sources_and_build_flags():
+    _check_kernel_source("fused_step", "fused_trotter_step_launch")
+    _check_kernel_source("wht", "wht_planes_launch", trig=False)
 
 
 def test_build_dir_is_ignored_and_sources_are_packaged():

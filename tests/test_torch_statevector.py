@@ -77,14 +77,14 @@ def test_single_and_stacked_statevectors(nq):
         jcircs = _random_circuits(jc, jf, nq, 3, seed=nq)
     # one circuit
     want = np.asarray(jsv.statevector(jc.tensorize(jcircs[0])))
-    got = tsv.statevector(tc.tensorize(circs[0]))
+    got = tsv.statevector(tc.tensorize(circs[0]), device="cpu")
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
     # a stacked batch: each circuit with its own qubits (per-row gathers)
     ct = tc.stack_circuits(circs)
     assert np.asarray(ct.qubits).ndim == 3
     want_b = np.asarray(jsv.batch_statevectors(jc.stack_circuits(jcircs)))
-    got_b = tsv.batch_statevectors(ct)
+    got_b = tsv.batch_statevectors(ct, device="cpu")
     np.testing.assert_allclose(got_b.numpy(), want_b, atol=1e-5, rtol=0)
 
 
@@ -96,7 +96,7 @@ def test_template_batch_shares_qubits(h, rng):
                          ).astype(np.float32)
     ct = tpl.bind(torch.as_tensor(values))
     assert np.asarray(ct.qubits).ndim == 2           # one index set
-    got = tsv.statevector(ct)
+    got = tsv.statevector(ct, device="cpu")
     jct = jtpl.bind(jnp.asarray(values))
     want = jax.vmap(lambda p: jsv.statevector(
         jc.CircuitTensor(jct.gate_ids, jct.qubits, p, 5)))(jct.params)
@@ -106,15 +106,15 @@ def test_template_batch_shares_qubits(h, rng):
     per_row = tc.CircuitTensor(
         np.broadcast_to(ct.gate_ids, (6,) + ct.gate_ids.shape),
         np.broadcast_to(ct.qubits, (6,) + ct.qubits.shape), ct.params, 5)
-    np.testing.assert_array_equal(tsv.statevector(per_row).numpy(),
-                                  got.numpy())
+    np.testing.assert_array_equal(
+        tsv.statevector(per_row, device="cpu").numpy(), got.numpy())
 
 
 def test_expectations_match_jax(rng):
     nq = 4
     circs = _random_circuits(tc, tf, nq, 3, seed=20)
     jcircs = _random_circuits(jc, jf, nq, 3, seed=20)
-    states = tsv.batch_statevectors(tc.stack_circuits(circs))
+    states = tsv.batch_statevectors(tc.stack_circuits(circs), device="cpu")
     jstates = jsv.batch_statevectors(jc.stack_circuits(jcircs))
     probs = tsv.probabilities(states)
     jprobs = jsv.probabilities(jstates)
@@ -131,18 +131,39 @@ def test_expectations_match_jax(rng):
         tsv.expval_pauli_sum(states, obs).numpy(),
         np.asarray(jsv.expval_pauli_sum(jstates, jobs)), atol=1e-5)
     np.testing.assert_allclose(
-        tsv.ideal_expectation_values(circs, obs),
+        tsv.ideal_expectation_values(circs, obs, device="cpu"),
         jsv.ideal_expectation_values(jcircs, jobs), atol=1e-5)
     per = [to.single_z(q % nq, nq) for q in range(len(circs))]
     jper = [jo.single_z(q % nq, nq) for q in range(len(circs))]
     np.testing.assert_allclose(
-        tsv.ideal_expectation_values(circs, per),
+        tsv.ideal_expectation_values(circs, per, device="cpu"),
         jsv.ideal_expectation_values(jcircs, jper), atol=1e-5)
 
 
 def test_bell_state_closed_form():
-    psi = tsv.statevector(tc.tensorize(tc.Circuit(2).h(0).cx(0, 1)))
+    psi = tsv.statevector(tc.tensorize(tc.Circuit(2).h(0).cx(0, 1)),
+                          device="cpu")
     for pauli, want in (("ZZ", 1.0), ("XX", 1.0), ("YY", -1.0),
                         ("ZI", 0.0)):
         got = tsv.expval_pauli_sum(psi, to.PauliSum(pauli))
         assert abs(float(got) - want) < 1e-6, pauli
+
+
+def test_entry_points_run_on_the_card_unless_asked():
+    """The statevector entry points default to the card, as every other
+    entry point of the port does, and convert.py names no default device."""
+    import inspect
+
+    from mlqem_tpu_torch import convert
+
+    for fn in (tsv.zero_state, tsv.statevector, tsv.batch_statevectors,
+               tsv.ideal_expectation_values):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for fn in (convert.engine_tables_from_numpy,
+               convert.pipeline_tables_from_numpy):
+        assert (inspect.signature(fn).parameters["device"].default
+                is inspect.Parameter.empty)
+    # a tensor's device still decides, with or without ``device``
+    ct = tc.tensorize(tc.Circuit(2).h(0).cx(0, 1))
+    ct.params = torch.as_tensor(np.asarray(ct.params, np.float32))
+    assert tsv.statevector(ct).device.type == "cpu"
