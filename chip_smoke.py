@@ -9,9 +9,11 @@ Phases, each of which exits non-zero on failure:
 2. build the four kernels at once from ``mlqem_tpu_torch/csrc/``:
    ``evolve.cu`` (K1), ``frame_evolve.cu`` (K2), ``fused_step.cu`` (K3) and
    ``wht.cu`` (K4), one ``nvcc`` each;
-3. hold the kernel against its plain PyTorch version on the card
-   (nq 6, 8, 10; 4 steps; ragged row counts; max|Δ| ≤ 1e-5) and time both
-   at the main path's noisy-arm shape (nq=10, 524,288 rows);
+3. hold K1 (``csrc/evolve.cu``) against its plain PyTorch version on the
+   card from |0…0⟩ (nq 6, 8, 10) and from random unit-norm states (nq 1,
+   4, 5, 6, 10, 11, 13: each side of the kernel's register, shuffle and
+   shared-memory splits); 4 steps; ragged row counts; max|Δ| ≤ 1e-5; and
+   time both at the main path's noisy-arm shape (nq=10, 524,288 rows);
 4. run the kicked-Ising label generator at the bench configuration
    (``configurable_device(10, seed=0)``, 4 steps, dt 0.25, 16,384 circuits
    × 32 trajectories, 10,000 shots) through the kernel: the launch count
@@ -32,10 +34,12 @@ Phases, each of which exits non-zero on failure:
    matching the plain path with ``shots=None``, and the batch-mean noisy
    ⟨Z_q⟩ matching the kicked-Ising engine's within 5 standard errors;
 8. time the frame pipeline: pairs/min, the stages, peak device memory;
-9. hold K4 (``csrc/wht.cu``) against its plain version (w 1 to 21, ragged
+9. hold K4 (``csrc/wht.cu``) against its plain version (w 1 to 22, ragged
    rows down to 1; max|Δ| ≤ 2e-6·max|want| per plane) and K3
    (``csrc/fused_step.cu``) against its plain version (w 3 to 14, unit-norm
-   states; max|Δ| ≤ 1e-5), and time both at the light-cone path's shapes;
+   states; max|Δ| ≤ 1e-5), and time both at the light-cone path's shapes
+   (K4 also per pass: its low pass alone, in GB/s, beside the two-pass
+   floor);
 10. run the light-cone cross-check (``lightcone_crosscheck``: 100 qubits,
     6 steps, w=13, 4096 realizations) against the Pauli-propagation audit
     values that ship in ``docs/demos/results/audit_values_tpu.npz``:
@@ -108,8 +112,9 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_inputs(nq, rows, seed, device):
-    """±1 signs and θJ from numpy; |0…0⟩ starts made on the device."""
+def kernel_inputs(nq, rows, seed, device, random_start=False):
+    """±1 signs and θJ from numpy; |0…0⟩ starts made on the device, or
+    unit-norm random starts from numpy."""
     import numpy as np
     import torch
 
@@ -123,9 +128,15 @@ def kernel_inputs(nq, rows, seed, device):
         return torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                device=device)
 
-    re = torch.zeros((rows, 2 ** nq), device=device)
-    re[:, 0] = 1.0
-    args = [re, torch.zeros_like(re),
+    if random_start:
+        re, im = rng.normal(size=(2, rows, 2 ** nq))
+        norm = np.sqrt((re ** 2 + im ** 2).sum(axis=1, keepdims=True))
+        re, im = dev(re / norm), dev(im / norm)
+    else:
+        re = torch.zeros((rows, 2 ** nq), device=device)
+        re[:, 0] = 1.0
+        im = torch.zeros_like(re)
+    args = [re, im,
             dev(rng.choice([-1.0, 1.0], size=(rows, STEPS * nq))),
             dev(rng.choice([-1.0, 1.0], size=(rows, STEPS * nb))),
             dev(rng.uniform(-1.2, -0.1, size=(rows, 1))),
@@ -233,10 +244,13 @@ def bound(n_bytes, n_flops):
 
 
 def step_flops(nq, nb, dim):
-    """f32 operations of one kicked-Ising Trotter step on one row: two WHTs
-    (2 flops per amplitude per stage and plane), and two phases (the sign
-    sum, its scale, the complex rotation, sincos counted as 2)."""
-    return 8 * nq * dim + dim * (nq + 9) + dim * (nb + 9)
+    """The least f32 operations of one kicked-Ising Trotter step on one row,
+    whatever implements it: two unscaled WHTs (1 add per amplitude per stage
+    and plane: 4·nq·dim; the 2^(−nq/2) folds into the phases' cos and sin),
+    two complex rotations (6 per amplitude: 12·dim), and the phases' angles:
+    with ±1 signs the sign sum takes nq + 1 values (nb + 1 for ZZ) per row
+    and step, each a scale and a sincos counted as 2 (3·(nq + nb + 2))."""
+    return 4 * nq * dim + 12 * dim + 3 * (nq + nb + 2)
 
 
 def plan_flops(plan, nq):
@@ -476,8 +490,9 @@ def lightcone_checks(card, cuda):
                 f" rows={rows}): {rel} > {K4_TOL} relative")
         return err
 
-    for nq, rows in [(1, 5), (5, 3), (8, 1001), (13, 33), (14, 7), (17, 3),
-                     (LC_W, 1)]:
+    for nq, rows in [(1, 5), (4, 7), (5, 3), (6, 33), (8, 1001), (12, 3),
+                     (13, 33), (14, 7), (17, 3), (18, 2), (LC_W, 1), (22, 1),
+                     (22, 3)]:
         k4_check(nq, rows)
     k4_err = k4_check(LC_W, LC_CHUNK + 1)
     torch.cuda.empty_cache()
@@ -532,6 +547,20 @@ def lightcone_checks(card, cuda):
             lambda: kwht.wht_planes(re, im, LC_W),
             lambda: kwht.wht_planes_reference(re, im, LC_W), 1)
         k_bound = bound(2 * 8 * re.numel(), 2 * 2 * LC_W * re.numel())
+        if rows == LC_CHUNK:
+            # the low pass alone: the same bytes as rows of 2^13
+            low_re = re.view(-1, 2 ** 13)
+            low_im = im.view(-1, 2 ** 13)
+            low_ms = min(time_ms(lambda: kwht.wht_planes(low_re, low_im, 13),
+                                 5) for _ in range(2))
+            pass_gb = 2 * 8 * re.numel() / 1e9     # read + write, 2 planes
+            floor_ms = 2 * pass_gb * 1e9 / HBM_BYTES_PER_S * 1e3
+            print(f"wht_planes w={LC_W} rows={rows} per pass: low pass (bits "
+                  f"0-12) {low_ms:.3f} ms = {pass_gb / low_ms * 1e3:.0f} GB/s, "
+                  f"high pass (bits 13-{LC_W - 1}, the rest of the call) "
+                  f"{k_ms - low_ms:.3f} ms = "
+                  f"{pass_gb / (k_ms - low_ms) * 1e3:.0f} GB/s; two-pass floor {floor_ms:.3f} ms ({pass_gb:.2f} GB "
+                  f"a pass over {HBM_BYTES_PER_S / 1e12} TB/s) [{card}]")
         del re, im
         torch.cuda.empty_cache()
         gbs = 16 * rows * 2 ** LC_W / (k_ms * 1e-3) / 1e9
@@ -788,15 +817,19 @@ def main():
                         print(f"  {name}.cu: " + line.strip())
 
     # -- 3. kernel vs plain version -------------------------------------------
-    for nq, rows in [(6, 4099), (8, 4099), (8, 16384), (10, 4099),
-                     (10, 16384)]:
-        args, nb = kernel_inputs(nq, rows, seed=nq, device=cuda)
+    for nq, rows, rand in [(6, 4099, False), (8, 4099, False),
+                           (8, 16384, False), (10, 4099, False),
+                           (10, 16384, False), (1, 1001, True), (4, 4099, True),
+                           (5, 257, True), (6, 4099, True), (10, 4099, True),
+                           (11, 129, True), (13, 33, True)]:
+        args, nb = kernel_inputs(nq, rows, seed=nq, device=cuda,
+                                 random_start=rand)
         got = kev.evolve_fused(*args, 2.0 * DT, STEPS, nq, nb)
         want = kev.evolve_fused_reference(*args, 2.0 * DT, STEPS, nq, nb)
         torch.cuda.synchronize()
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        print(f"kernel vs plain: nq={nq} rows={rows} steps={STEPS} "
-              f"max|Δ|={err:.3e}")
+        print(f"kernel vs plain: nq={nq} rows={rows} steps={STEPS} start="
+              f"{'random' if rand else '|0>'} max|Δ|={err:.3e}")
         require(err <= TOL, f"kernel disagrees with its plain version "
                 f"(nq={nq}, rows={rows}): {err} > {TOL}")
     args, nb = kernel_inputs(NQ, NOISY_ROWS, seed=0, device=cuda)

@@ -19,7 +19,6 @@ from ...utils.build import build_library
 from .wht import wht  # the plain butterfly, re-exported
 
 MAX_NQ = 13
-_MAX_SMEM_BYTES = 232448      # per-block shared memory on sm_90
 
 
 def evolve_fused_reference(re, im, kick_signs, bond_signs, theta_j_col,
@@ -75,7 +74,7 @@ def evolve_fused(re, im, kick_signs, bond_signs, theta_j_col, bit_pm_t,
     hold ±1 (the kernel writes NaN everywhere if they hold anything else).
     All f32 and contiguous. CPU tensors go to
     :func:`evolve_fused_reference`; CUDA tensors to the kernel, which
-    takes 1 ≤ nq ≤ 13 and nb ≤ 32 on an sm_90 card.
+    takes 1 ≤ nq ≤ 13, nb ≤ 32 and any number of steps on an sm_90 card.
     """
     device = re.device
     if device.type == "cpu":
@@ -89,9 +88,6 @@ def evolve_fused(re, im, kick_signs, bond_signs, theta_j_col, bit_pm_t,
     if not 0 <= nb <= 32:
         raise ValueError(f"the kernel takes 0 <= nb <= 32, got {nb}")
     dim = 2 ** nq
-    if 4 * (4 * dim + steps * (nq + nb)) > _MAX_SMEM_BYTES:
-        raise ValueError(f"steps={steps} at nq={nq} exceeds the kernel's "
-                         "shared memory")
     if torch.cuda.get_device_capability(device) != (9, 0):
         raise RuntimeError("the kernel is built for sm_90a; "
                            f"{torch.cuda.get_device_name(device)} is not")

@@ -79,8 +79,9 @@ def wht_planes(re: torch.Tensor, im: torch.Tensor, nq: int
     (re, im).
 
     CPU tensors go to :func:`wht_planes_reference` (its result is copied
-    back). CUDA tensors go to the kernel, which takes contiguous, distinct
-    f32 planes of any row count and 1 ≤ nq ≤ 30 on an sm_90 card.
+    back). CUDA tensors go to the kernel, which takes contiguous, distinct,
+    16-byte aligned f32 planes of any row count and 1 ≤ nq ≤ 30 on an
+    sm_90 card.
     """
     device = re.device
     if device.type == "cpu":
@@ -103,6 +104,9 @@ def wht_planes(re: torch.Tensor, im: torch.Tensor, nq: int
                              f"({re.shape[0]}, {2 ** nq})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "copies float4)")
     if re.data_ptr() == im.data_ptr() and re.numel():
         raise ValueError("re and im must be distinct tensors")
     lib = load_library()

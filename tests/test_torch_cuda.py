@@ -55,6 +55,46 @@ def test_kernel_matches_reference(nq, rows, cuda_device):
     assert (im - ref_im).abs().max().item() <= 1e-5
 
 
+def _random_start_inputs(nq, rows, steps, device, seed, odd_rows=()):
+    """Unit-norm random start states; the rows in ``odd_rows`` get kick and
+    bond signs other than ±1."""
+    args, nb = _inputs(nq, rows, steps, device, seed)
+    rng = np.random.default_rng(seed + 100)
+    re = rng.normal(size=(rows, 2 ** nq))
+    im = rng.normal(size=(rows, 2 ** nq))
+    norm = np.sqrt((re ** 2 + im ** 2).sum(axis=1, keepdims=True))
+    args[0] = torch.as_tensor((re / norm).astype(np.float32), device=device)
+    args[1] = torch.as_tensor((im / norm).astype(np.float32), device=device)
+    for r in odd_rows:
+        args[2][r] *= torch.as_tensor(
+            rng.uniform(0.5, 1.5, size=steps * nq).astype(np.float32),
+            device=device)
+        if nb:
+            args[3][r] *= torch.as_tensor(
+                rng.uniform(0.5, 1.5, size=steps * nb).astype(np.float32),
+                device=device)
+    return args, nb
+
+
+# one nq on each side of every register / shuffle / shared-memory split,
+# then rows whose kick and bond signs are not all ±1
+@pytest.mark.parametrize("nq,rows,odd", [
+    (1, 37, False), (4, 301, False), (5, 33, False), (6, 65, False),
+    (10, 999, False), (11, 9, False), (13, 3, False), (3, 40, True),
+    (10, 50, True), (12, 6, True)])
+def test_kernel_matches_reference_from_random_states(nq, rows, odd,
+                                                     cuda_device):
+    args, nb = _random_start_inputs(nq, rows, 4, cuda_device, seed=nq,
+                                    odd_rows=range(0, rows, 3) if odd else ())
+    before = kev.evolve_fused.launches
+    got = kev.evolve_fused(*args, 0.5, 4, nq, nb)
+    want = kev.evolve_fused_reference(*args, 0.5, 4, nq, nb)
+    torch.cuda.synchronize()
+    assert kev.evolve_fused.launches == before + 1
+    for g_, w_ in zip(got, want):
+        assert (g_ - w_).abs().max().item() <= 1e-5
+
+
 def test_kernel_poisons_output_on_non_sign_tables(cuda_device):
     args, nb = _inputs(6, 8, 2, cuda_device)
     args[5] = args[5] * 0.5
@@ -158,8 +198,12 @@ def test_frame_pipeline_kernel_matches_plain_path(cuda_device):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+# the last ten cases: each side of every register / shuffle / exchange /
+# pass split of the kernel
 @pytest.mark.parametrize("nq,rows", [(1, 3), (5, 1), (8, 33), (13, 7),
-                                     (14, 3), (17, 2), (21, 1)])
+                                     (14, 3), (17, 2), (21, 1), (1, 1),
+                                     (4, 7), (5, 9), (6, 1), (12, 7), (13, 1),
+                                     (14, 1), (18, 3), (21, 3), (22, 1)])
 def test_wht_kernel_matches_reference(nq, rows, cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(nq)
     re = torch.randn((rows, 2 ** nq), device=cuda_device, generator=g)
@@ -184,6 +228,9 @@ def test_wht_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         kwht.wht_planes(re, torch.zeros((16, 2), device=cuda_device).t(), 4)
     with pytest.raises(ValueError, match="distinct"):
         kwht.wht_planes(re, re, 4)
+    flat = torch.zeros(3 * 16 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        kwht.wht_planes(flat[1:17].view(1, 16), flat[17:33].view(1, 16), 4)
     with pytest.raises(ValueError, match="nq"):
         kwht.wht_planes(re, torch.zeros_like(re), 31)
 
