@@ -8,12 +8,15 @@ Phases, each of which exits non-zero on failure:
    and the float32 matmul settings, which must be IEEE f32 (no TF32);
 2. build the four kernels at once from ``mlqem_tpu_torch/csrc/``:
    ``evolve.cu`` (K1), ``frame_evolve.cu`` (K2), ``fused_step.cu`` (K3) and
-   ``wht.cu`` (K4), one ``nvcc`` each;
+   ``wht.cu`` (K4), one ``nvcc`` each; every instance of K1 and K3 (both
+   from ``kicked_regs.cuh``) must show 0 bytes of register spills;
 3. hold K1 (``csrc/evolve.cu``) against its plain PyTorch version on the
    card from |0…0⟩ (nq 6, 8, 10) and from random unit-norm states (nq 1,
    4, 5, 6, 10, 11, 13: each side of the kernel's register, shuffle and
-   shared-memory splits); 4 steps; ragged row counts; max|Δ| ≤ 1e-5; and
-   time both at the main path's noisy-arm shape (nq=10, 524,288 rows);
+   shared-memory splits); 4 steps; ragged row counts; max|Δ| ≤ 1e-5; its
+   outputs there equal, bit for bit, to those of K1 before its device code
+   moved into ``csrc/kicked_regs.cuh`` (a SHA-256 of them); and time both
+   at the main path's noisy-arm shape (nq=10, 524,288 rows);
 4. run the kicked-Ising label generator at the bench configuration
    (``configurable_device(10, seed=0)``, 4 steps, dt 0.25, 16,384 circuits
    × 32 trajectories, 10,000 shots) through the kernel: the launch count
@@ -23,8 +26,11 @@ Phases, each of which exits non-zero on failure:
    plain path to 1e-5;
 5. time whole batches (pairs/min), the stages, and peak device memory;
 6. hold K2 against its plain PyTorch version (max|Δ| ≤ 2e-5) on random
-   plans of every op kind (nq 2, 5, 10, 13; ragged row counts) and on the
-   bench template's plan (nq 10, 4 steps: 148 ops) at 16,384 rows, and time
+   plans of every op kind and on plans that move every qubit with every
+   kind (nq 1, 2, 4, 5, 6, 10, 11, 13: every register position and the
+   lane path of the warp kernel, and the shared-memory kernel; ragged row
+   counts), and on the bench template's plan (nq 10, 4 steps: 148 ops,
+   which the wrapper merges to 76) at 16,384 and 262,144 rows, and time
    both at the frame pipeline's shape (262,144 rows);
 7. run the generic Pauli-frame label pipeline at ``bench.py --method
    frame``'s configuration (``IsingLabelPipeline(method="frame")``: 8192
@@ -36,8 +42,9 @@ Phases, each of which exits non-zero on failure:
 8. time the frame pipeline: pairs/min, the stages, peak device memory;
 9. hold K4 (``csrc/wht.cu``) against its plain version (w 1 to 22, ragged
    rows down to 1; max|Δ| ≤ 2e-6·max|want| per plane) and K3
-   (``csrc/fused_step.cu``) against its plain version (w 3 to 14, unit-norm
-   states; max|Δ| ≤ 1e-5), and time both at the light-cone path's shapes
+   (``csrc/fused_step.cu``) against its plain version (w 1, 3, 5, 7, 10,
+   11, 12, 13, 14: each side of every geometry split; unit-norm states;
+   max|Δ| ≤ 1e-5), and time both at the light-cone path's shapes
    (K4 also per pass: its low pass alone, in GB/s, beside the two-pass
    floor);
 10. run the light-cone cross-check (``lightcone_crosscheck``: 100 qubits,
@@ -62,6 +69,7 @@ The line before the last is the card as ``nvidia-smi`` gives it; the one
 before that holds the kernels' JSON record. The last line is
 ``{"ok": true, "device": {...}}``.
 """
+import hashlib
 import json
 import os
 import statistics
@@ -90,6 +98,15 @@ XCK_TRAJ = 4096                       # the cross-check's realizations
 K3_TIME_ROWS = 3 * XCK_TRAJ           # the cross-check's noisy arm
 LC_W = 2 * LC_STEPS + 1               # demo1's window, K4's width
 K4_TOL = 2e-6                         # relative to max|want| per plane
+# phase 3's K1 cases: (nq, rows, random start)
+K1_CASES = [(6, 4099, False), (8, 4099, False), (8, 16384, False),
+            (10, 4099, False), (10, 16384, False), (1, 1001, True),
+            (4, 4099, True), (5, 257, True), (6, 4099, True),
+            (10, 4099, True), (11, 129, True), (13, 33, True)]
+# SHA-256 of K1's outputs on K1_CASES (re, then im, case by case) from the
+# build of csrc/evolve.cu before its device code moved into kicked_regs.cuh
+K1_DIGEST = ("7b89b4bdcb5fe09b21c4dedb20e421f4"
+             "7ea5b8a4e583659f72fc13803d4dee9f")
 
 
 def fail(msg):
@@ -307,18 +324,23 @@ def frame_phases(card, cuda, device_model):
 
     # -- 6. K2 vs its plain version --------------------------------------------
     rng = np.random.default_rng(6)
-    for nq, rows in [(2, 1001), (5, 4099), (10, 3001), (13, 257)]:
-        plan, n_rot = kfe.every_kind_plan(rng, nq, 148)
-        theta = torch.as_tensor(rng.uniform(-3, 3, size=(rows, n_rot)),
-                                dtype=torch.float32, device=cuda)
-        got = kfe.evolve_frame_marginals(theta, plan, nq)
-        want = kfe.evolve_frame_marginals_reference(theta, plan, nq)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        print(f"K2 vs plain: random plan of every kind, nq={nq} "
-              f"rows={rows} ops={len(plan)} max|Δ|={err:.3e}")
-        require(err <= K2_TOL, f"K2 disagrees with its plain version "
-                f"(nq={nq}, rows={rows}): {err} > {K2_TOL}")
+    for nq, rows in [(1, 999), (2, 1001), (4, 4097), (5, 4099), (6, 2053),
+                     (10, 3001), (11, 129), (13, 257)]:
+        for label, (plan, n_rot) in (
+                ("random plan of every kind",
+                 kfe.every_kind_plan(rng, nq, 148)),
+                ("every qubit moved by every kind",
+                 kfe.every_path_plan(rng, nq))):
+            theta = torch.as_tensor(rng.uniform(-3, 3, size=(rows, n_rot)),
+                                    dtype=torch.float32, device=cuda)
+            got = kfe.evolve_frame_marginals(theta, plan, nq)
+            want = kfe.evolve_frame_marginals_reference(theta, plan, nq)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            print(f"K2 vs plain: {label}, nq={nq} rows={rows} "
+                  f"ops={len(plan)} max|Δ|={err:.3e}")
+            require(err <= K2_TOL, f"K2 disagrees with its plain version "
+                    f"(nq={nq}, rows={rows}, {label}): {err} > {K2_TOL}")
 
     def pipeline(**kw):
         return IsingLabelPipeline(device_model, nq=NQ, steps=STEPS, dt=DT,
@@ -337,6 +359,10 @@ def frame_phases(card, cuda, device_model):
     require(len(plan) == 148 and counts == {kfe.ROT_X: 40, kfe.ROT_Z: 36,
                                             kfe.GATE_CX: 72},
             "the bench template's plan is not 40 rx + 36 rz + 72 cx")
+    fused = kfe.fuse_plan(plan)
+    print(f"K2 runs it merged: {len(fused)} ops = "
+          f"{sum(op[0] == kfe.ROT_X for op in fused)} rx + "
+          f"{sum(op[0] == kfe.ROT_ZZ for op in fused)} rzz")
 
     def bench_theta(batch, seed):
         """Sign-folded angles of the pipeline's own draws: [batch·T, R]."""
@@ -373,11 +399,13 @@ def frame_phases(card, cuda, device_model):
 
     k_ms, p_ms, kernel_ms, plain_ms = time_kernel_and_plain(
         run_kernel, run_plain, 1)
-    k2_bound = bound(4 * theta.numel() + 4 * FRAME_ROWS * NQ + 16 * len(plan),
-                     FRAME_ROWS * plan_flops(plan, NQ))
+    # from the plan the kernel runs (merged): the least work of this run
+    k2_bound = bound(4 * theta.numel() + 4 * FRAME_ROWS * NQ + 16 * len(fused),
+                     FRAME_ROWS * plan_flops(fused, NQ))
     del theta
     torch.cuda.empty_cache()
-    print(f"evolve_frame_marginals nq={NQ} ops={len(plan)} rows={FRAME_ROWS}: "
+    print(f"evolve_frame_marginals nq={NQ} ops={len(plan)} (run as "
+          f"{len(fused)}) rows={FRAME_ROWS}: "
           f"max|Δ|={big_err:.3e}; kernel {k_ms:.3f} ms "
           f"(runs {[round(x, 3) for x in kernel_ms]}), plain PyTorch "
           f"{p_ms:.3f} ms (runs {[round(x, 3) for x in plain_ms]}); bound "
@@ -522,8 +550,8 @@ def lightcone_checks(card, cuda):
                 f"rows={rows}): {err} > {TOL}")
         return err, args
 
-    for nq, rows in [(3, 1001), (7, 4099), (10, 3001), (13, 257),
-                     (kfs.MAX_NQ, 33)]:
+    for nq, rows in [(1, 999), (3, 1001), (5, 2049), (7, 4099), (10, 3001),
+                     (11, 129), (12, 65), (13, 257), (kfs.MAX_NQ, 33)]:
         k3_check(nq, rows)
     k3_err, args = k3_check(13, K3_TIME_ROWS)
     theta_h = 2.0 * LC_H * LC_DT
@@ -810,28 +838,40 @@ def main():
           + ", ".join(f"{n} {t:.2f} s" for n, t in builds.items()) + ")")
     for name in builds:
         log = library_path(name) + ".log"
+        spills = []
         if os.path.exists(log):
             with open(log) as f:
                 for line in f:
                     if "ptxas info" in line or "bytes stack frame" in line:
                         print(f"  {name}.cu: " + line.strip())
+                    if "spill stores" in line:
+                        spills.append("0 bytes spill stores, 0 bytes spill "
+                                      "loads" in line)
+        if name in ("evolve", "fused_step"):
+            require(spills and all(spills), f"{name}.cu spills registers "
+                    f"({spills.count(False)} of {len(spills)} functions)")
+        print(f"  {name}.cu: {spills.count(True)} of {len(spills)} functions "
+              f"without register spills")
 
     # -- 3. kernel vs plain version -------------------------------------------
-    for nq, rows, rand in [(6, 4099, False), (8, 4099, False),
-                           (8, 16384, False), (10, 4099, False),
-                           (10, 16384, False), (1, 1001, True), (4, 4099, True),
-                           (5, 257, True), (6, 4099, True), (10, 4099, True),
-                           (11, 129, True), (13, 33, True)]:
+    digest = hashlib.sha256()
+    for nq, rows, rand in K1_CASES:
         args, nb = kernel_inputs(nq, rows, seed=nq, device=cuda,
                                  random_start=rand)
         got = kev.evolve_fused(*args, 2.0 * DT, STEPS, nq, nb)
         want = kev.evolve_fused_reference(*args, 2.0 * DT, STEPS, nq, nb)
         torch.cuda.synchronize()
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        for g in got:
+            digest.update(g.cpu().numpy().tobytes())
         print(f"kernel vs plain: nq={nq} rows={rows} steps={STEPS} start="
               f"{'random' if rand else '|0>'} max|Δ|={err:.3e}")
         require(err <= TOL, f"kernel disagrees with its plain version "
                 f"(nq={nq}, rows={rows}): {err} > {TOL}")
+    print(f"K1 outputs on these cases: SHA-256 {digest.hexdigest()} "
+          f"(before the header move: {K1_DIGEST})")
+    require(digest.hexdigest() == K1_DIGEST,
+            "K1's outputs changed from those before the header move")
     args, nb = kernel_inputs(NQ, NOISY_ROWS, seed=0, device=cuda)
     got = kev.evolve_fused(*args, 2.0 * DT, STEPS, NQ, nb)
     want = kev.evolve_fused_reference(*args, 2.0 * DT, STEPS, NQ, nb)

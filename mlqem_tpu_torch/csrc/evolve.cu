@@ -1,12 +1,9 @@
-// Fused kicked-Ising evolution for Hopper (sm_90a).
+// Fused kicked-Ising evolution for Hopper (sm_90a): K1.
 //
 // Replaces mlqem_tpu/ops/pallas/evolve.py::evolve_fused (body
 // _evolve_kernel). Each row is one trajectory, held as re and im planes
-// [rows, 2^nq] f32. For each of `steps` Trotter steps the row gets
-//   1. a Walsh-Hadamard transform H^{(x)nq},
-//   2. the RX phase    exp(i * theta_h/2 * (kick_s . bit_pm_t[:, j])),
-//   3. a Walsh-Hadamard transform,
-//   4. the ZZ phase    exp(-i * theta_j/2 * (bond_s . bond_par_t[:, j])).
+// [rows, 2^nq] f32, and gets `steps` Trotter steps (WHT, RX phase, WHT, ZZ
+// phase) with the +-1 tables in the layout [n, 2^nq].
 //
 // What bounds it here: per row one read and one write of 2 * 4 * 2^nq
 // bytes against 2*steps WHTs of nq butterfly stages, i.e. the f32 adds of
@@ -14,337 +11,15 @@
 // shared-memory traffic that moves amplitudes between threads. Device
 // memory (8.75 GB, 2.6 ms) is not the limit once those are small.
 //
-// What the design does about it:
-// - The state lives in registers: each thread holds 32 amplitudes of a row
-//   per plane (nq >= 5; below, a thread holds its whole row). Layout A puts
-//   amplitude bits 0-4 in a thread's registers; layout Hi puts the bits
-//   from `split` up (5 at nq <= 10, 10 above) there. A WHT is butterflies
-//   in registers, one exchange A <-> Hi through shared memory (float2
-//   re/im pairs, padded one word in 32: no bank conflicts), and more
-//   butterflies in registers; at nq 11-13 bits 5-9 lie across the lanes of
-//   a warp and go through warp shuffles. At nq <= 10 a row lies within one
-//   warp (nq=10: one row a warp; fewer qubits: several rows), so a step
-//   needs no block barrier; at nq 11-13 a row spans 2-8 warps and each
-//   exchange takes one.
-// - The butterflies are unscaled (a + b, a - b); the 2^(-nq/2) of each WHT
-//   is folded into the cos/sin of the phase that follows it.
-// - Phases: with +-1 kick and bond signs, kick_s . bit_pm_t[:, j] equals
-//   nq - 2 * popcount(neg(j) ^ kneg), so it takes nq + 1 values per row and
-//   step (nb + 1 for ZZ). Those sincosf are computed once per row and phase
-//   into a shared-memory table and looked up per amplitude; they equal the
-//   per-amplitude values bit for bit, since the dot of +-1 values is an
-//   exact integer. A row whose signs are not all +-1 sums them per
-//   amplitude inside the kernel, so any input gives the plain version's
-//   result.
-// - The +-1 tables bit_pm_t [nq, dim] and bond_par_t [nb, dim] are turned
-//   once per persistent block into per-amplitude sign masks in shared
-//   memory. Any table entry other than +-1 makes the kernel write NaN to
-//   every output, so a misuse cannot pass silently.
-// Arithmetic is f32 throughout with full-precision sincosf (no fast math).
+// What the design does about it: the device code is kicked_regs.cuh's,
+// shared with K3 (csrc/fused_step.cu): the state in registers, unscaled
+// butterflies, one shared-memory exchange per WHT, warp shuffles for bits
+// 5-9 at nq 11-13, and the phases' cos/sin from a per-row table of nq + 1
+// and nb + 1 values. K1 keeps two mask words an amplitude, since its nb
+// reaches 32. One template instance per nq 1-13.
+// Left for later: see kicked_regs.cuh.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kXchg = kThreads * 32;       // amplitudes a block exchanges
-constexpr float kInvSqrt2 = 0.70710678118654752440f;
-
-// Shared-memory index of amplitude j: one word of padding in 32.
-__host__ __device__ constexpr int pad(int j) { return j + (j >> 5); }
-
-struct Args {
-  const float* re_in;
-  const float* im_in;
-  const float* kick;
-  const float* bond;
-  const float* theta_j;
-  const float* bit_pm_t;
-  const float* bond_par_t;
-  float* re_out;
-  float* im_out;
-  long long rows;
-  int nb, steps;
-  float theta_h;
-};
-
-template <int NQ>
-struct Geo {
-  static constexpr int DIM = 1 << NQ;
-  static constexpr int RB = NQ < 5 ? NQ : 5;     // register bits
-  static constexpr int AMPS = 1 << RB;           // per thread and plane
-  static constexpr int TB = NQ - RB;             // thread-in-row bits
-  static constexpr int SPLIT = NQ <= 10 ? RB : 10;
-  static constexpr int NTOP = NQ - SPLIT;        // bits >= SPLIT, in Hi registers
-  static constexpr int MID = RB - NTOP;          // Hi register bits below them
-  static constexpr int ROWS = kThreads >> TB;    // rows a block holds
-  static constexpr int PD = pad(DIM);
-  static constexpr bool XCHG = NQ > 5;
-  // Amplitude of register e of thread tau of a row: tau << RB | e in
-  // layout A, tau | hi(e) in layout Hi. Both are a per-thread base plus a
-  // constant of the unrolled e, and so are their padded indices:
-  // pad(x + e) = pad(x) + e for x a multiple of 32 (layout A, nq >= 5),
-  // pad(x + tau + hi(e)) = pad(x + tau) + pad(hi(e)) (layout Hi).
-  __host__ __device__ static constexpr int hi(int e) {
-    return ((e >> MID) << SPLIT) | ((e & ((1 << MID) - 1)) << TB);
-  }
-  static size_t smem_bytes(int nb) {
-    return (XCHG ? sizeof(float2) * pad(kXchg) : 0) +
-           sizeof(float2) * ROWS * (NQ + nb + 2) + 2 * sizeof(uint32_t) * PD;
-  }
-};
-
-// Barrier among the threads of a row.
-template <int NQ>
-__device__ __forceinline__ void row_sync() {
-  if constexpr (NQ > 10) {
-    __syncthreads();
-  } else {
-    __syncwarp();
-  }
-}
-
-// Unscaled butterflies between registers e and e | 1 << q.
-template <int N>
-__device__ __forceinline__ void reg_stage(float (&re)[N], float (&im)[N],
-                                          int q) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    if (!(e & (1 << q))) {
-      const int f = e | (1 << q);
-      const float ra = re[e], rb = re[f], ia = im[e], ib = im[f];
-      re[e] = ra + rb;
-      re[f] = ra - rb;
-      im[e] = ia + ib;
-      im[f] = ia - ib;
-    }
-  }
-}
-
-__device__ __forceinline__ float shfl_bfly(float x, int m, bool upper) {
-  const float y = __shfl_xor_sync(0xffffffffu, x, m);
-  return upper ? y - x : x + y;
-}
-
-// Layout A's stages: bits 0..RB-1 in registers, then (nq > 10) bits 5-9
-// across the lanes.
-template <int NQ>
-__device__ __forceinline__ void a_stages(float (&re)[Geo<NQ>::AMPS],
-                                         float (&im)[Geo<NQ>::AMPS],
-                                         int lane) {
-  using G = Geo<NQ>;
-#pragma unroll
-  for (int q = 0; q < G::RB; ++q) reg_stage(re, im, q);
-  if constexpr (NQ > 10) {
-#pragma unroll
-    for (int q = 0; q < 5; ++q) {
-      const bool upper = lane & (1 << q);
-#pragma unroll
-      for (int e = 0; e < G::AMPS; ++e) {
-        re[e] = shfl_bfly(re[e], 1 << q, upper);
-        im[e] = shfl_bfly(im[e], 1 << q, upper);
-      }
-    }
-  }
-}
-
-// Layout Hi's stages: bits SPLIT..NQ-1, registers bits MID.. .
-template <int NQ>
-__device__ __forceinline__ void hi_stages(float (&re)[Geo<NQ>::AMPS],
-                                          float (&im)[Geo<NQ>::AMPS]) {
-  using G = Geo<NQ>;
-#pragma unroll
-  for (int i = 0; i < G::NTOP; ++i) reg_stage(re, im, G::MID + i);
-}
-
-// From layout Hi to A (TO_A) or back, through the block's exchange buffer.
-template <int NQ, bool TO_A>
-__device__ __forceinline__ void exchange(float (&re)[Geo<NQ>::AMPS],
-                                         float (&im)[Geo<NQ>::AMPS],
-                                         float2* xch, int rib, int tau) {
-  using G = Geo<NQ>;
-  if constexpr (G::XCHG) {
-    const int rb = rib << NQ;
-    float2* at_a = xch + pad(rb + (tau << G::RB));
-    float2* at_hi = xch + pad(rb + tau);
-#pragma unroll
-    for (int e = 0; e < G::AMPS; ++e) {
-      (TO_A ? at_hi[pad(G::hi(e))] : at_a[e]) = make_float2(re[e], im[e]);
-    }
-    row_sync<NQ>();
-#pragma unroll
-    for (int e = 0; e < G::AMPS; ++e) {
-      const float2 z = TO_A ? at_a[e] : at_hi[pad(G::hi(e))];
-      re[e] = z.x;
-      im[e] = z.y;
-    }
-  }
-}
-
-__device__ __forceinline__ void rotate(float& r, float& i, float c, float s) {
-  const float x = r, y = i;
-  r = x * c - y * s;
-  i = x * s + y * c;
-}
-
-// Multiply amplitude j by norm * exp(i * scale * sum_k (neg_k(j) ? -w_k :
-// w_k)) for this thread's amplitudes (layout A or Hi); w = sgn[0..n-1].
-template <int NQ, bool IN_A>
-__device__ __forceinline__ void phase(float (&re)[Geo<NQ>::AMPS],
-                                      float (&im)[Geo<NQ>::AMPS],
-                                      const uint32_t* masks, float2* tab,
-                                      const float* sgn, int n, float scale,
-                                      float norm, int tau) {
-  using G = Geo<NQ>;
-  uint32_t neg = 0;
-  bool signs = true;
-  for (int k = 0; k < n; ++k) {
-    const float w = sgn[k];
-    neg |= static_cast<uint32_t>(w < 0.f) << k;
-    signs &= (w == 1.f) | (w == -1.f);
-  }
-  for (int m = tau; m <= n; m += 1 << G::TB) {
-    float s, c;
-    sincosf(scale * static_cast<float>(n - 2 * m), &s, &c);
-    tab[m] = make_float2(c * norm, s * norm);
-  }
-  row_sync<NQ>();
-  // this thread's masks: layout A from pad(tau << RB), Hi from pad(tau)
-  const uint32_t* at = masks + pad(IN_A ? tau << G::RB : tau);
-  const auto mask = [at](int e) {
-    return at[IN_A ? e : pad(G::hi(e))];
-  };
-  if (signs) {
-#pragma unroll
-    for (int e = 0; e < G::AMPS; ++e) {
-      const float2 cs = tab[__popc(mask(e) ^ neg)];
-      rotate(re[e], im[e], cs.x, cs.y);
-    }
-  } else {                                 // signs other than +-1
-#pragma unroll
-    for (int e = 0; e < G::AMPS; ++e) {
-      const uint32_t m = mask(e);
-      float dot = 0.f;
-      for (int k = 0; k < n; ++k) dot += ((m >> k) & 1u) ? -sgn[k] : sgn[k];
-      float s, c;
-      sincosf(scale * dot, &s, &c);
-      rotate(re[e], im[e], c * norm, s * norm);
-    }
-  }
-}
-
-template <int NQ>
-__global__ void __launch_bounds__(kThreads, 2) evolve_kernel(Args a) {
-  using G = Geo<NQ>;
-  extern __shared__ float2 smem2[];
-  float2* xch = smem2;
-  float2* tabs = xch + (G::XCHG ? pad(kXchg) : 0);
-  const int tab_len = NQ + a.nb + 2;
-  uint32_t* bit_neg = reinterpret_cast<uint32_t*>(tabs + G::ROWS * tab_len);
-  uint32_t* par_neg = bit_neg + G::PD;
-
-  int bad = 0;
-  for (int j = threadIdx.x; j < G::DIM; j += kThreads) {
-    uint32_t bm = 0, pm = 0;
-    for (int q = 0; q < NQ; ++q) {
-      const float v = a.bit_pm_t[q * G::DIM + j];
-      bm |= static_cast<uint32_t>(v < 0.f) << q;
-      bad |= (v != 1.f) & (v != -1.f);
-    }
-    for (int k = 0; k < a.nb; ++k) {
-      const float v = a.bond_par_t[k * G::DIM + j];
-      pm |= static_cast<uint32_t>(v < 0.f) << k;
-      bad |= (v != 1.f) & (v != -1.f);
-    }
-    bit_neg[pad(j)] = bm;
-    par_neg[pad(j)] = pm;
-  }
-  bad = __syncthreads_or(bad);
-
-  const int rib = threadIdx.x >> G::TB;          // row in block
-  const int tau = threadIdx.x & ((1 << G::TB) - 1);
-  const int lane = threadIdx.x & 31;
-  float2* rx_tab = tabs + rib * tab_len;
-  float2* zz_tab = rx_tab + NQ + 1;
-  const int nk = a.steps * NQ, nbs = a.steps * a.nb;
-  const float half_th = 0.5f * a.theta_h;
-  const float norm = ldexpf((NQ & 1) ? kInvSqrt2 : 1.f, -(NQ / 2));
-  for (long long base = static_cast<long long>(blockIdx.x) * G::ROWS;
-       base < a.rows; base += static_cast<long long>(gridDim.x) * G::ROWS) {
-    const long long row = base + rib;
-    const bool valid = row < a.rows;
-    const long long rr = valid ? row : a.rows - 1;   // inputs to read
-    const long long off = row * G::DIM + tau;     // + hi(e): layout Hi
-    if (bad) {
-      if (valid) {
-        for (int e = 0; e < G::AMPS; ++e) {
-          a.re_out[off + G::hi(e)] = __int_as_float(0x7fffffff);
-          a.im_out[off + G::hi(e)] = __int_as_float(0x7fffffff);
-        }
-      }
-      continue;
-    }
-    float re[G::AMPS], im[G::AMPS];
-#pragma unroll
-    for (int e = 0; e < G::AMPS; ++e) {
-      const long long g = off + G::hi(e);
-      re[e] = valid ? a.re_in[g] : 0.f;
-      im[e] = valid ? a.im_in[g] : 0.f;
-    }
-    const float half_tj = -0.5f * a.theta_j[rr];
-    const float* kick = a.kick + rr * nk;
-    const float* bond = a.bond + rr * nbs;
-    for (int s = 0; s < a.steps; ++s) {
-      hi_stages<NQ>(re, im);
-      exchange<NQ, true>(re, im, xch, rib, tau);
-      a_stages<NQ>(re, im, lane);
-      phase<NQ, true>(re, im, bit_neg, rx_tab, kick + s * NQ, NQ, half_th,
-                      norm, tau);
-      a_stages<NQ>(re, im, lane);
-      exchange<NQ, false>(re, im, xch, rib, tau);
-      hi_stages<NQ>(re, im);
-      phase<NQ, false>(re, im, par_neg, zz_tab, bond + s * a.nb, a.nb,
-                       half_tj, norm, tau);
-    }
-    if (valid) {
-#pragma unroll
-      for (int e = 0; e < G::AMPS; ++e) {
-        const long long g = off + G::hi(e);
-        a.re_out[g] = re[e];
-        a.im_out[g] = im[e];
-      }
-    }
-  }
-}
-
-template <int NQ>
-int launch(const Args& a, cudaStream_t stream) {
-  using G = Geo<NQ>;
-  const size_t smem = G::smem_bytes(a.nb);
-  cudaError_t err = cudaFuncSetAttribute(
-      evolve_kernel<NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, evolve_kernel<NQ>, kThreads, smem)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  const long long groups = (a.rows + G::ROWS - 1) / G::ROWS;
-  long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  if (grid > groups) grid = groups;
-  evolve_kernel<NQ><<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-      a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "kicked_regs.cuh"
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // All arrays are contiguous f32 on the current device: re_in, im_in,
@@ -361,23 +36,25 @@ extern "C" int evolve_fused_launch(const float* re_in, const float* im_in,
                                    int nb, int steps, float theta_h,
                                    void* stream) {
   if (rows <= 0) return 0;
-  const Args a{re_in,  im_in,  kick, bond, theta_j, bit_pm_t, bond_par_t,
-               re_out, im_out, rows, nb,   steps,   theta_h};
+  const int dim = 1 << nq;
+  const Args a{re_in,  im_in,  kick,    bond,  theta_j, bit_pm_t, bond_par_t,
+               re_out, im_out, rows,    nb,    steps,   theta_h,  dim,
+               1,      dim,    1};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nq) {
-    case 1: return launch<1>(a, s);
-    case 2: return launch<2>(a, s);
-    case 3: return launch<3>(a, s);
-    case 4: return launch<4>(a, s);
-    case 5: return launch<5>(a, s);
-    case 6: return launch<6>(a, s);
-    case 7: return launch<7>(a, s);
-    case 8: return launch<8>(a, s);
-    case 9: return launch<9>(a, s);
-    case 10: return launch<10>(a, s);
-    case 11: return launch<11>(a, s);
-    case 12: return launch<12>(a, s);
-    case 13: return launch<13>(a, s);
+    case 1: return launch_kicked<1, false>(a, s);
+    case 2: return launch_kicked<2, false>(a, s);
+    case 3: return launch_kicked<3, false>(a, s);
+    case 4: return launch_kicked<4, false>(a, s);
+    case 5: return launch_kicked<5, false>(a, s);
+    case 6: return launch_kicked<6, false>(a, s);
+    case 7: return launch_kicked<7, false>(a, s);
+    case 8: return launch_kicked<8, false>(a, s);
+    case 9: return launch_kicked<9, false>(a, s);
+    case 10: return launch_kicked<10, false>(a, s);
+    case 11: return launch_kicked<11, false>(a, s);
+    case 12: return launch_kicked<12, false>(a, s);
+    case 13: return launch_kicked<13, false>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

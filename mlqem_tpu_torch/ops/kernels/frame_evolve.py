@@ -8,7 +8,8 @@ sign-folded angles ``theta_eff`` [rows, n_rot] and a plan, a tuple of
 yields its per-qubit P(1) [rows, nq]. On CUDA tensors it launches the
 hand-written kernel of ``csrc/frame_evolve.cu`` (built with ``nvcc`` at
 first use) on the current stream, or raises; on CPU tensors it runs
-:func:`evolve_frame_marginals_reference`.
+:func:`evolve_frame_marginals_reference`. The kernel runs the plan as
+:func:`fuse_plan` merges it, which gives the same marginals.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ ROTATION_KINDS = (ROT_Z, ROT_X, ROT_Y, ROT_ZZ)
 TWO_QUBIT_KINDS = (ROT_ZZ, GATE_CX, GATE_CY, GATE_CZ, GATE_SWAP)
 
 MAX_NQ = 13
+MAX_WARP_NQ = 10                  # widths the kernel holds in registers
 _MAX_SMEM_BYTES = 232448 - 1024   # per-block shared memory on sm_90, less
 #                                   the kernel's static reduction scratch
 _INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
@@ -70,6 +72,83 @@ def every_kind_plan(rng: np.random.Generator, nq: int, n_ops: int
         plan.append((kind, a, b, slot if kind in ROTATION_KINDS else -1))
         slot += kind in ROTATION_KINDS
     return tuple(plan), slot
+
+
+def every_path_plan(rng: np.random.Generator, nq: int) -> Tuple[Plan, int]:
+    """A plan that moves every qubit with every kind: rx, ry and h on each
+    qubit, cx and cy onto each qubit (random controls) and swap of each
+    qubit with a random other, with rz, rzz and cz between them and an rx
+    layer first so that no op meets a trivial state. At nq ≥ 6 the kernel
+    runs each of its code paths (five register positions and the lane
+    path) for each kind. Returns (plan, number of angle slots)."""
+    plan, slot = [], 0
+
+    def add(kind, a, b):
+        nonlocal slot
+        rot = kind in ROTATION_KINDS
+        plan.append((kind, a, b, slot if rot else -1))
+        slot += rot
+
+    def other(q):
+        return (q + 1 + int(rng.integers(nq - 1))) % nq
+
+    for q in range(nq):
+        add(ROT_X, q, 0)
+    kinds = ((ROT_X, ROT_Y, GATE_H) if nq == 1 else
+             (ROT_X, ROT_Y, GATE_H, GATE_CX, GATE_CY, GATE_SWAP))
+    for kind in kinds:
+        for t in range(nq):
+            if kind in (GATE_CX, GATE_CY):
+                add(kind, other(t), t)
+            else:
+                add(kind, t, other(t) if nq > 1 else 0)
+            q = int(rng.integers(nq))
+            if nq == 1:
+                add(ROT_Z, q, 0)
+            else:
+                add((ROT_Z, ROT_ZZ, GATE_CZ)[t % 3], q, other(q))
+    return tuple(plan), slot
+
+
+def _qubits(op) -> Tuple[int, ...]:
+    return op[1:3] if op[0] in TWO_QUBIT_KINDS else op[1:2]
+
+
+@functools.lru_cache(maxsize=64)
+def fuse_plan(plan: Plan) -> Plan:
+    """The plan with each rz(b) that sits between two cx(a, b) merged with
+    them into rzz(a, b) on the rz's angle slot, where no op between the
+    three touches a or b.
+
+    Exact, bit for bit in the marginals: a CX is a permutation of the
+    amplitudes, so it commutes exactly with any op on other qubits (each
+    amplitude gets the same arithmetic on the same values, elsewhere), and
+    CX·RZ_b(θ)·CX = RZZ_ab(θ) applies the same cos and sin with the sign
+    sgn(a)·sgn(b) that the conjugated rz sees. The bench template's 40 rx
+    + 36 rz + 72 cx become 40 rx + 36 rzz.
+    """
+    ops = list(plan)
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        if op[0] == ROT_Z:
+            b = op[1]
+            before = next((k for k in range(i - 1, -1, -1)
+                           if b in _qubits(ops[k])), None)
+            if before is not None and ops[before][0] == GATE_CX \
+                    and ops[before][2] == b:
+                cx = ops[before][:3]
+                pair = set(cx[1:])
+                if all(not pair & set(_qubits(ops[k]))
+                       for k in range(before + 1, i)):
+                    after = next((k for k in range(i + 1, len(ops))
+                                  if pair & set(_qubits(ops[k]))), None)
+                    if after is not None and ops[after][:3] == cx:
+                        ops[i] = (ROT_ZZ, cx[1], b, op[3])
+                        del ops[after], ops[before]
+                        i -= 1
+        i += 1
+    return tuple(ops)
 
 
 def evolve_frame_marginals_reference(theta_eff: torch.Tensor, plan: Plan,
@@ -150,7 +229,11 @@ def _plan_tensor(plan: Plan, device: torch.device) -> torch.Tensor:
 
 
 def _smem_bytes(nq: int, n_ops: int, n_rot: int) -> int:
-    """Dynamic shared memory of one block: plan, re/im planes, cos/sin."""
+    """The least dynamic shared memory of one block: the plan (nq ≤ 10,
+    where the angle table is left out if it does not fit), or the plan,
+    the re/im planes and the cos/sin (nq 11-13)."""
+    if nq <= MAX_WARP_NQ:
+        return 16 * n_ops
     return 16 * n_ops + 4 * (2 * (1 << nq) + 2 * n_rot)
 
 
@@ -189,6 +272,7 @@ def evolve_frame_marginals(theta_eff: torch.Tensor, plan: Sequence,
         raise ValueError("theta_eff must be contiguous")
     if not rows < 2 ** 31:
         raise ValueError(f"the kernel takes fewer than 2^31 rows, got {rows}")
+    plan = fuse_plan(plan)                     # what the kernel runs
     if _smem_bytes(nq, len(plan), n_rot) > _MAX_SMEM_BYTES:
         raise ValueError(f"a plan of {len(plan)} ops and {n_rot} angles at "
                          f"nq={nq} exceeds the kernel's shared memory")

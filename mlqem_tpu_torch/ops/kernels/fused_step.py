@@ -22,8 +22,8 @@ from ...utils.build import build_library
 from .evolve import _check, evolve_fused_reference
 from .wht import check_ieee_matmul, hadamard_dense
 
-# the row and its 16-bit sign masks fill 12·2^nq bytes of shared memory:
-# 192 KB at nq=14, of the 227 KB a block may use on sm_90
+# at nq=14 the block's exchange buffer and packed sign masks take 198 KB of
+# shared memory, of the 227 KB a block may use on sm_90
 MAX_NQ = 14
 MAX_NB = 16
 

@@ -47,11 +47,12 @@ def hadamard_dense(nq: int) -> np.ndarray:
 
 def check_ieee_matmul(t: torch.Tensor):
     """Raise if a float32 matmul on ``t``'s device would run in TF32: the
-    matmul forms of the WHT multiply by ±1/√d, which TF32 rounds."""
+    matmul forms of the WHT multiply by ±1/√d, and the kicked engine's ⟨Z⟩
+    sums probabilities, both of which TF32 rounds to 10 mantissa bits."""
     if t.device.type == "cuda" and (
             torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("a matmul WHT must run at IEEE f32, and TF32 is "
+        raise RuntimeError("this matmul must run at IEEE f32, and TF32 is "
                            "enabled for float32 matmuls")
 
 

@@ -290,6 +290,7 @@ class KickedIsingEngine:
         if self.tables.confusion is not None:
             probs = apply_readout_confusion(probs, self.tables.confusion,
                                             self.nq)
+        check_ieee_matmul(probs)
         z = (probs @ self._neg_bit_pm) * flip
         z = z.reshape(-1, self.n_traj, self.nq)
         if self.shots is None:
@@ -329,8 +330,9 @@ class KickedIsingEngine:
         # circuit
         ones_k = torch.ones((B, S * nq), device=self.device)
         ones_b = torch.ones((B, S * nb), device=self.device)
-        ideal = self.evolve(theta_h, theta_j, ones_k, ones_b
-                            ) @ self._neg_bit_pm
+        probs = self.evolve(theta_h, theta_j, ones_k, ones_b)
+        check_ieee_matmul(probs)
+        ideal = probs @ self._neg_bit_pm
         mark("ideal")
         return ideal, noisy
 

@@ -3,10 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``mlqem_tpu_torch/_build/`` and loaded with ``ctypes``; nothing includes
-PyTorch's headers, so a build takes seconds. The library's file name holds
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. ``nvcc`` is found through ``CUDA_HOME``,
-then ``PATH``, then ``/usr/local/cuda``.
+PyTorch's headers. The library's file name holds a hash of the source, the
+headers of ``csrc/`` (``*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is. ``nvcc`` is
+found through ``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda``.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from typing import List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -38,10 +39,18 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels are built with it")
 
 
+def source_paths(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and the headers it may include."""
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    return [os.path.join(CSRC_DIR, f) for f in [f"{name}.cu", *headers]]
+
+
 def library_path(name: str) -> str:
     """Where ``csrc/<name>.cu`` is built to, for its current content."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_paths(name):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -18,7 +18,7 @@ setup(
     package_data={
         "mlqem_tpu.device": ["fixtures/*.json"],
         "mlqem_tpu.apps": ["fixtures/*.txt"],
-        "mlqem_tpu_torch": ["csrc/*.cu"],
+        "mlqem_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     include_package_data=True,
     python_requires=">=3.10",

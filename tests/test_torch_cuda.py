@@ -6,6 +6,8 @@ PyTorch is installed::
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,9 @@ from mlqem_tpu_torch.ops.kernels import evolve as kev
 from mlqem_tpu_torch.ops.kernels import frame_evolve as fe
 from mlqem_tpu_torch.ops.kernels import fused_step as kfs
 from mlqem_tpu_torch.ops.kernels import wht as kwht
+from mlqem_tpu_torch.ops.frame_trajectory import frame_plan
 from mlqem_tpu_torch.ops.kicked_ising import _sign_tables
+from mlqem_tpu_torch.parallel.datagen import make_ising_template
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +99,78 @@ def test_kernel_matches_reference_from_random_states(nq, rows, odd,
         assert (g_ - w_).abs().max().item() <= 1e-5
 
 
+# SHA-256 of K1's re and im outputs on the cases of the two tests above,
+# from the build of csrc/evolve.cu before its device code moved into
+# csrc/kicked_regs.cuh: the move left K1 unchanged bit for bit.
+K1_DIGESTS = {
+    "zero-2-3-":
+        "0b5e42b463a1f7bf97b1a3329867f07b2ddae0155ef53367257aa0c5267b2e9e",
+    "zero-6-33-":
+        "49c985f724b4beb3d31a5e3dc4fe2203009721bf13fb755c6bf18bb2d0f36dcf",
+    "zero-8-4099-":
+        "22ff7903f7672792548ce91a7a7ac812e3c1b0d4de57d5a53501b437b23811d0",
+    "zero-10-1000-":
+        "cd68fcb6a3d928c9f55918ffd2a4f3eb762a553519d0498bc5f810351adf2ce8",
+    "zero-13-17-":
+        "c0f50871fa17774393d007c5731d13c712c5ea153540f67e9c6da457961d9bde",
+    "random-1-37-":
+        "93f86019d5b1975ff57e5d218eb2ed9cfa43592286ade39530aad7e82980748d",
+    "random-4-301-":
+        "8d4c7cea9c8f8948ca1b2298e984014d0756f7e73f450ec76c624d70e8a7682b",
+    "random-5-33-":
+        "a11167a1f9ad11e9a25d226f8f4fde17377a3708d6251304bfa5be3e9adfc542",
+    "random-6-65-":
+        "4d639bed27f33969e4ec4698cea350a9d9eac054b7755a4fe2c6c3962f6abc5a",
+    "random-10-999-":
+        "4ae895122813ec29dc340bed33764d499026a2d7e017f372e277cf0622d3cca5",
+    "random-11-9-":
+        "7b1e6835ffec29767c4a7b849e0dd34a6d8f76adb6096619a96574fc0cdd56e0",
+    "random-13-3-":
+        "468adcd5f160bcabbdfb661ebcac7f9ebb021df24e57cb4448f3262974f10aa5",
+    "random-3-40-odd":
+        "5fe314b0551493ed5489ffffcf8c59d4f21702e1a08373a5747440294f576085",
+    "random-10-50-odd":
+        "8b5a5f10e22d0a69a819d2d0825d0ffcf12e6835db09c8852801eda3430d91ff",
+    "random-12-6-odd":
+        "c65e08a1dacac5a82f698f0baf04e1c658c84a3b81a8b0391f68f92ed4e4ccdf",
+}
+
+
+def _k1_case(name, device):
+    """(args, nq, nb) of a case of the two tests above, by its name."""
+    start, nq, rows, odd = name.split("-")
+    nq, rows = int(nq), int(rows)
+    if start == "zero":
+        args, nb = _inputs(nq, rows, 4, device)
+    else:
+        args, nb = _random_start_inputs(
+            nq, rows, 4, device, seed=nq,
+            odd_rows=range(0, rows, 3) if odd == "odd" else ())
+    return args, nq, nb
+
+
+def _k1_digest(name, device, evolve_fused):
+    args, nq, nb = _k1_case(name, device)
+    digest = hashlib.sha256()
+    for t in evolve_fused(*args, 0.5, 4, nq, nb):
+        digest.update(t.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+K1_CASE_NAMES = (
+    [f"zero-{nq}-{rows}-" for nq, rows in [(2, 3), (6, 33), (8, 4099),
+                                           (10, 1000), (13, 17)]]
+    + [f"random-{nq}-{rows}-{'odd' if odd else ''}" for nq, rows, odd in [
+        (1, 37, False), (4, 301, False), (5, 33, False), (6, 65, False),
+        (10, 999, False), (11, 9, False), (13, 3, False), (3, 40, True),
+        (10, 50, True), (12, 6, True)]])
+
+
+@pytest.mark.parametrize("name", K1_CASE_NAMES)
+def test_kernel_unchanged_bit_for_bit(name, cuda_device):
+    assert _k1_digest(name, cuda_device, kev.evolve_fused) == K1_DIGESTS[name]
+
+
 def test_kernel_poisons_output_on_non_sign_tables(cuda_device):
     args, nb = _inputs(6, 8, 2, cuda_device)
     args[5] = args[5] * 0.5
@@ -148,6 +224,56 @@ def test_frame_kernel_matches_reference(nq, rows, cuda_device):
     torch.cuda.synchronize()
     assert fe.evolve_frame_marginals.launches == before + 1
     assert got.shape == (rows, nq)
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+# each side of the warp kernel's register / lane splits, and the
+# shared-memory kernel (nq 11, 13)
+@pytest.mark.parametrize("nq,rows", [(1, 67), (4, 129), (6, 65), (10, 999),
+                                     (11, 9), (13, 5)])
+def test_frame_kernel_runs_every_code_path(nq, rows, cuda_device):
+    """Every kind moves every qubit: each register position and the lane
+    path of rx, ry, h, cx, cy and swap."""
+    rng = np.random.default_rng(nq + 100)
+    plan, n_rot = fe.every_path_plan(rng, nq)
+    theta = torch.as_tensor(rng.uniform(-3, 3, size=(rows, n_rot)),
+                            dtype=torch.float32, device=cuda_device)
+    before = fe.evolve_frame_marginals.launches
+    got = fe.evolve_frame_marginals(theta, plan, nq)
+    want = fe.evolve_frame_marginals_reference(theta, plan, nq)
+    torch.cuda.synchronize()
+    assert fe.evolve_frame_marginals.launches == before + 1
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+def test_frame_kernel_runs_merged_plans(cuda_device):
+    """The bench template's plan, which the wrapper runs merged (148 ops as
+    76), against the plain version of the plan as given."""
+    tpl = make_ising_template(10, 4, "Z", 0.25, h=1.0)
+    plan, meta = frame_plan(tpl.bind_host(
+        np.zeros(tpl.num_parameters, np.float32)))
+    assert len(fe.fuse_plan(plan)) == 76
+    rng = np.random.default_rng(5)
+    theta = torch.as_tensor(rng.uniform(-3, 3, size=(1001, len(meta))),
+                            dtype=torch.float32, device=cuda_device)
+    got = fe.evolve_frame_marginals(theta, plan, 10)
+    want = fe.evolve_frame_marginals_reference(theta, plan, 10)
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("nq", [2, 6])
+def test_frame_kernel_with_more_angles_than_its_table_holds(nq,
+                                                            cuda_device):
+    """1200 angles for 16-32 rows a warp: the per-warp cos/sin table does
+    not fit in shared memory, and the lanes take each op's sincosf."""
+    rng = np.random.default_rng(nq)
+    kinds = (fe.ROT_X, fe.ROT_Y, fe.ROT_Z, fe.ROT_ZZ)
+    plan = tuple((kinds[i % 4], i % nq, (i + 1) % nq, i)
+                 for i in range(1200))
+    theta = torch.as_tensor(rng.uniform(-3, 3, size=(37, 1200)),
+                            dtype=torch.float32, device=cuda_device)
+    got = fe.evolve_frame_marginals(theta, plan, nq)
+    want = fe.evolve_frame_marginals_reference(theta, plan, nq)
     assert (got - want).abs().max().item() <= 2e-5
 
 
@@ -249,8 +375,10 @@ def _step_inputs(nq, rows, device, seed=0):
                             device=device) for a in arrays]
 
 
+# the last cases: one nq on each side of every geometry split
 @pytest.mark.parametrize("nq,rows", [(1, 2), (3, 5), (7, 33), (10, 1000),
-                                     (13, 17), (14, 3)])
+                                     (13, 17), (14, 3), (1, 70), (5, 33),
+                                     (11, 9), (12, 7), (14, 1)])
 def test_step_kernel_matches_reference(nq, rows, cuda_device):
     args = _step_inputs(nq, rows, cuda_device)
     before = kfs.fused_trotter_step.launches
@@ -262,11 +390,41 @@ def test_step_kernel_matches_reference(nq, rows, cuda_device):
         assert (g_ - w_).abs().max().item() <= 1e-5
 
 
-def test_step_kernel_poisons_output_on_non_sign_tables(cuda_device):
-    args = _step_inputs(6, 8, cuda_device)
+@pytest.mark.parametrize("nq", [6, 14])
+def test_step_kernel_poisons_output_on_non_sign_tables(nq, cuda_device):
+    args = _step_inputs(nq, 3, cuda_device)
     args[6] = args[6] * 0.5
     re, im = kfs.fused_trotter_step(*args, 0.5)
     assert torch.isnan(re).all() and torch.isnan(im).all()
+
+
+@pytest.mark.parametrize("nq", [1, 5, 6, 10, 11, 13])
+def test_step_kernel_equals_k1_at_one_step(nq, cuda_device):
+    """K3 and K1 run the same device code (csrc/kicked_regs.cuh): one step
+    of K1 on K1's table layout equals K3 bit for bit."""
+    args = _step_inputs(nq, 37, cuda_device, seed=nq)
+    got = kfs.fused_trotter_step(*args, 0.9)
+    k1 = args[:5] + [args[5].t().contiguous(), args[6].t().contiguous()]
+    want = kev.evolve_fused(*k1, 0.9, 1, nq, args[3].shape[1])
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.view(torch.int32), w_.view(torch.int32))
+
+
+def test_kicked_engine_refuses_tf32(cuda_device):
+    """⟨Z⟩ = probs @ (−bit_pm) must run at IEEE f32: with TF32 on, the
+    engine raises rather than round the probabilities to 10 bits."""
+    eng = KickedIsingEngine(configurable_device(6, seed=0), nq=6, steps=2,
+                            device=cuda_device, n_traj=4, shots=None)
+    J = np.array([0.2, 0.4])
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="TF32"):
+            eng.generate(J, seed=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    ideal, _ = eng.generate(J, seed=0)
+    assert np.isfinite(ideal).all()
 
 
 def test_step_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):

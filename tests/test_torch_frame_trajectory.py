@@ -234,3 +234,109 @@ def test_wrapper_refuses_bad_plans():
                                   ((fe.ROT_X, 0, 1, 0),), 3)
     # a 1q op's second qubit is padding and is not checked
     fe.evolve_frame_marginals(theta, ((fe.ROT_X, 0, 1, 0),), 1)
+
+
+def _merge_prone_plan(rng, nq, n_ops):
+    """A random plan over cx, rz, rx, h and cz, in which cx(a, b) rz(b)
+    cx(a, b) runs with other qubits' ops between them are common."""
+    plan, slot = [], 0
+    while len(plan) < n_ops:
+        a, b = (int(x) for x in rng.choice(nq, 2, replace=False))
+        pick = int(rng.integers(5))
+        if pick < 2:               # a bond: cx, (other ops), rz, cx
+            plan.append((fe.GATE_CX, a, b, -1))
+            c = int(rng.integers(nq))
+            if c not in (a, b):
+                plan.append((fe.ROT_X, c, 0, slot))
+                slot += 1
+            plan.append((fe.ROT_Z, b, 0, slot))
+            slot += 1
+            plan.append((fe.GATE_CX, a, b, -1))
+        elif pick == 2:
+            plan.append((fe.ROT_X, a, 0, slot))
+            slot += 1
+        elif pick == 3:
+            plan.append((fe.GATE_H, a, 0, -1))
+        else:
+            plan.append((fe.GATE_CZ, a, b, -1))
+    return tuple(plan), slot
+
+
+def _plan_case(name, rng):
+    """(plan, n_rot, nq): the Ising template's own plan, or a random one."""
+    if name.startswith("ising"):
+        nq = int(name[5:])
+        tpl = make_ising_template(nq, 2, "Z", 0.25, h=1.0)
+        ct = tpl.bind_host(np.zeros(tpl.num_parameters, np.float32))
+        plan, meta = tft.frame_plan(ct)
+        return plan, len(meta), nq
+    plan, n_rot = _merge_prone_plan(rng, 4, 60)
+    return plan, n_rot, 4
+
+
+@pytest.mark.parametrize("name", ["ising4", "ising5", "random"])
+def test_fused_plan_matches_unfused_bit_for_bit(name, rng):
+    """The kernel runs fuse_plan's merged plan: on the plain version it
+    gives the unmerged plan's marginals bit for bit."""
+    plan, n_rot, nq = _plan_case(name, rng)
+    fused = fe.fuse_plan(plan)
+    merged = sum(op[0] == fe.GATE_CX for op in plan) - sum(
+        op[0] == fe.GATE_CX for op in fused)
+    assert merged > 0 and len(fused) == len(plan) - merged
+    assert sum(op[0] == fe.ROT_ZZ for op in fused) == merged // 2
+    theta = torch.as_tensor(rng.uniform(-3, 3, size=(33, n_rot)),
+                            dtype=torch.float32)
+    want = fe.evolve_frame_marginals_reference(theta, plan, nq)
+    got = fe.evolve_frame_marginals_reference(theta, fused, nq)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", ["ising4", "random"])
+def test_fused_plan_matches_jax_interpret(name, rng):
+    plan, n_rot, nq = _plan_case(name, rng)
+    theta = rng.uniform(-3, 3, size=(5, n_rot)).astype(np.float32)
+    got = fe.evolve_frame_marginals_reference(torch.as_tensor(theta),
+                                              fe.fuse_plan(plan), nq)
+    want = np.asarray(j_evolve(jnp.asarray(theta), plan, nq, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+def test_fuse_plan_leaves_plans_without_a_run_unchanged(rng):
+    for nq in (1, 2, 5, 10):
+        plan, _ = fe.every_kind_plan(rng, nq, 148)
+        assert fe.fuse_plan(plan) == plan
+        plan, _ = fe.every_path_plan(rng, nq)
+        assert fe.fuse_plan(plan) == plan
+    cx = (fe.GATE_CX, 0, 1, -1)
+    for near_miss in (
+            (cx, (fe.ROT_Z, 0, 0, 0), cx),                 # rz on the control
+            (cx, (fe.ROT_Z, 1, 0, 0), (fe.GATE_CX, 1, 0, -1)),
+            (cx, (fe.ROT_Z, 1, 0, 0), (fe.GATE_CY, 0, 1, -1)),
+            (cx, (fe.ROT_X, 0, 0, 0), (fe.ROT_Z, 1, 0, 1), cx),
+            (cx, (fe.ROT_Z, 1, 0, 0), (fe.GATE_H, 1, 0, -1), cx),
+            (cx, (fe.ROT_Z, 1, 0, 0), (fe.GATE_CZ, 2, 0, -1), cx),
+            (cx, (fe.ROT_Z, 1, 0, 0)), ((fe.ROT_Z, 1, 0, 0), cx)):
+        assert fe.fuse_plan(near_miss) == near_miss
+    # ops on other qubits between the three do not stop the merge
+    plan = (cx, (fe.GATE_CX, 2, 3, -1), (fe.ROT_Z, 1, 0, 0),
+            (fe.ROT_Y, 2, 0, 1), cx)
+    assert fe.fuse_plan(plan) == ((fe.GATE_CX, 2, 3, -1),
+                                  (fe.ROT_ZZ, 0, 1, 0), (fe.ROT_Y, 2, 0, 1))
+
+
+@pytest.mark.parametrize("nq", [1, 3, 6])
+def test_every_path_plan_moves_every_qubit_with_every_kind(nq, rng):
+    plan, n_rot = fe.every_path_plan(rng, nq)
+    assert fe.check_plan(plan, nq, n_rot) == plan
+    moved = {(op[0], op[2] if op[0] in (fe.GATE_CX, fe.GATE_CY) else op[1])
+             for op in plan}
+    kinds = ((fe.ROT_X, fe.ROT_Y, fe.GATE_H) if nq == 1 else
+             (fe.ROT_X, fe.ROT_Y, fe.GATE_H, fe.GATE_CX, fe.GATE_CY,
+              fe.GATE_SWAP))
+    assert {(k, q) for k in kinds for q in range(nq)} <= moved
+    if nq <= 3:
+        theta = rng.uniform(-3, 3, size=(3, n_rot)).astype(np.float32)
+        got = fe.evolve_frame_marginals(torch.as_tensor(theta), plan, nq)
+        want = np.asarray(j_evolve(jnp.asarray(theta), plan, nq,
+                                   interpret=True))
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)

@@ -62,6 +62,11 @@ def _check_kernel_source(name, entry, trig=True):
         text = f.read()
     assert f'extern "C" int {entry}' in text
     assert text.startswith("// ") and "Replaces mlqem_tpu/ops/pallas/" in text
+    # the device code may sit in headers of csrc/ that the source includes
+    for header in build.source_paths(name)[1:]:
+        if f'#include "{os.path.basename(header)}"' in text:
+            with open(header) as f:
+                text += f.read()
     assert ("sincosf(" in text) == trig
     for fast in ("__sinf", "__cosf", "__sincosf", "__expf", "use_fast_math"):
         assert fast not in text
@@ -90,7 +95,8 @@ def test_build_dir_is_ignored_and_sources_are_packaged():
         ignored = f.read().split()
     assert "mlqem_tpu_torch/_build/" in ignored
     with open(os.path.join(ROOT, "setup.py")) as f:
-        assert '"mlqem_tpu_torch": ["csrc/*.cu"]' in f.read()
+        assert ('"mlqem_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]'
+                in f.read())
 
 
 def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
