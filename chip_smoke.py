@@ -98,6 +98,10 @@ XCK_TRAJ = 4096                       # the cross-check's realizations
 K3_TIME_ROWS = 3 * XCK_TRAJ           # the cross-check's noisy arm
 LC_W = 2 * LC_STEPS + 1               # demo1's window, K4's width
 K4_TOL = 2e-6                         # relative to max|want| per plane
+# the exact path: bench.py --method density_matrix, and the batch-cap probe
+DM_BATCH, DM_CAP_BATCH = 512, 2048
+DM_CHECK, DM_NP_CHECK = 8, 2          # engine cross-checks; numpy circuits
+EST_TRAJ = 4096                       # TrajectoryEstimator's realizations
 # phase 3's K1 cases: (nq, rows, random start)
 K1_CASES = [(6, 4099, False), (8, 4099, False), (8, 16384, False),
             (10, 4099, False), (10, 16384, False), (1, 1001, True),
@@ -282,10 +286,10 @@ def plan_flops(plan, nq):
                       else per_kind.get(op[0], 0) for op in plan) + 3 + nq)
 
 
-def exact_ideal_z(J, nq, steps, dt, h=1.0):
-    """Independent check: ⟨Z_q⟩ of the Trotter circuit by complex128
+def exact_states(J, nq, steps, dt, h=1.0):
+    """Independent check: the Trotter circuit's states by complex128
     statevector simulation, gate by gate (RX(2h·dt) on every qubit, then
-    RZZ(−2J·dt) on the even and then the odd bonds)."""
+    RZZ(−2J·dt) on the even and then the odd bonds): [len(J), 2^nq]."""
     import numpy as np
 
     dim = 2 ** nq
@@ -307,8 +311,17 @@ def exact_ideal_z(J, nq, steps, dt, h=1.0):
             for qa, qb in bonds:
                 theta = -2.0 * float(jv) * dt
                 psi = psi * np.exp(-0.5j * theta * z[:, qa] * z[:, qb])
-        out.append((np.abs(psi) ** 2) @ z)
+        out.append(psi)
     return np.stack(out)
+
+
+def exact_ideal_z(J, nq, steps, dt, h=1.0):
+    """Independent check: ⟨Z_q⟩ of the Trotter circuit (:func:`exact_states`)."""
+    import numpy as np
+
+    dim = 2 ** nq
+    z = 1.0 - 2.0 * ((np.arange(dim)[:, None] >> np.arange(nq)[None, :]) & 1)
+    return (np.abs(exact_states(J, nq, steps, dt, h)) ** 2) @ z
 
 
 def frame_phases(card, cuda, device_model):
@@ -793,6 +806,482 @@ def lightcone_phases(card, cuda):
     torch.cuda.empty_cache()
     return k3, k4
 
+# -- the exact density-matrix path and the Estimator API (phases 13-14) ------
+def np_gate(name, params):
+    """Independent check: the few gates of the Ising circuit and of the
+    measurement rotations; cx is 4x4 on (control = MSB, target = LSB)."""
+    import numpy as np
+
+    if name == "cx":
+        return np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 0, 1],
+                         [0, 0, 1, 0]], np.complex128)
+    if name == "rx":
+        c, s = np.cos(params[0] / 2), np.sin(params[0] / 2)
+        return np.array([[c, -1j * s], [-1j * s, c]])
+    if name == "rz":
+        return np.diag([np.exp(-0.5j * params[0]), np.exp(0.5j * params[0])])
+    if name == "h":
+        return np.array([[1, 1], [1, -1]]) / np.sqrt(2)
+    if name == "sdg":
+        return np.diag([1, -1j])
+    raise ValueError(f"no numpy check for gate {name!r}")
+
+
+def np_relax(t1, t2, time):
+    """Independent check: thermal relaxation over ``time`` as a 1q superop
+    on vec(ρ) (index 2·row + col): |1⟩ decays to |0⟩ at T1, coherences by
+    e^(−t/T2) but never slower than T1 forces."""
+    import numpy as np
+
+    gamma = 1.0 - np.exp(-time / t1) if t1 > 0 else 0.0
+    decay = np.exp(-time / t2) if t2 > 0 else 1.0
+    coh = min(decay, np.sqrt(1.0 - gamma))
+    s = np.zeros((4, 4))
+    s[0, 0], s[0, 3], s[3, 3] = 1.0, gamma, 1.0 - gamma
+    s[1, 1] = s[2, 2] = coh
+    return s
+
+
+def np_gate_noise(calib, name, qubits):
+    """Independent check: the noise after a gate, built from the device's
+    calibration (``DeviceModel.to_dict()``) as Aer's ``from_backend`` does:
+    depolarizing of the strength that makes the composite reach the gate's
+    calibrated average infidelity, then thermal relaxation of each qubit
+    over the gate's length. A superop on vec(ρ) of the op's qubits (the
+    first = MSB), or None for rz and gates without calibration."""
+    import numpy as np
+
+    key = "_".join([name] + [str(q) for q in qubits])
+    props = calib["gates"].get(key)
+    if props is None and len(qubits) == 2:
+        props = calib["gates"].get(f"{name}_{qubits[1]}_{qubits[0]}")
+    if name == "rz" or props is None:
+        return None
+    k = len(qubits)
+    d = 2 ** k
+    s = np.eye(d * d)
+    if props["gate_length"] > 0:
+        rel = [np_relax(calib["qubits"][q]["t1"], calib["qubits"][q]["t2"],
+                        props["gate_length"]).reshape(2, 2, 2, 2)
+               for q in qubits]
+        s = rel[0].reshape(4, 4) if k == 1 else np.einsum(
+            "ijkl,mnop->imjnkolp", *rel).reshape(16, 16)
+    err = min(props["gate_error"], 1.0 - 4.0 ** -k)
+    if err > 0:
+        f_target = ((d + 1) * (1.0 - err) - 1.0) / d     # process fidelity
+        f_relax = float(np.trace(s).real) / d ** 2
+        p = 0.0
+        if f_relax > 1.0 / d ** 2:
+            p = min(max((f_relax - f_target) / (f_relax - 1.0 / d ** 2),
+                        0.0), 1.0)
+        vec_id = np.eye(d).reshape(-1)
+        dep = (1.0 - p) * np.eye(d * d) + p / d * np.outer(vec_id, vec_id)
+        s = s @ dep                        # depolarizing first, then relax
+    return s
+
+
+def np_confusion(calib):
+    """Independent check: per-qubit readout confusion M[meas, true] from
+    the calibrated symmetric flip probabilities, [nq, 2, 2]."""
+    import numpy as np
+
+    p = [min(q["readout_error"], 0.5) for q in calib["qubits"]]
+    return np.array([[[1.0 - x, x], [x, 1.0 - x]] for x in p])
+
+
+def np_apply_superop(rho, s, qubits):
+    """Apply a superop on vec(ρ) of ``qubits`` (the first = MSB) to the
+    row and column bit axes of a [2]*(2n) density matrix."""
+    import numpy as np
+
+    n, k = rho.ndim // 2, len(qubits)
+    axes = [n - 1 - q for q in qubits] + [2 * n - 1 - q for q in qubits]
+    out = np.tensordot(s.reshape((2,) * (4 * k)), rho,
+                       axes=(list(range(2 * k, 4 * k)), axes))
+    return np.moveaxis(out, list(range(2 * k)), axes)
+
+
+def np_noisy_dm(circuit, calib, rho=None):
+    """Independent check: the complex128 density matrix of a circuit under
+    its device's calibrated noise, as a [2]*(2n) tensor: each op's
+    kron(U, conj U), then its noise (:func:`np_gate_noise`), applied to the
+    op's row and column bit axes by ``np.tensordot``."""
+    import numpy as np
+
+    n = circuit.num_qubits
+    if rho is None:
+        rho = np.zeros((2,) * (2 * n), np.complex128)
+        rho[(0,) * (2 * n)] = 1.0
+    for op in circuit.ops:
+        if op.name in ("barrier", "measure"):
+            continue
+        u = np_gate(op.name, op.params)
+        rho = np_apply_superop(rho, np.kron(u, u.conj()), op.qubits)
+        noise = np_gate_noise(calib, op.name, op.qubits)
+        if noise is not None:
+            rho = np_apply_superop(rho, noise, op.qubits)
+    return rho
+
+
+def np_readout_parity(rho, confusion, support):
+    """⟨(−1)^(Σ measured bits over support)⟩ of a [2]*(2n) density matrix
+    under per-qubit confusion M[meas, true]: Σ_t p(t) Π_q (M[0,t_q] −
+    M[1,t_q])."""
+    import numpy as np
+
+    n = rho.ndim // 2
+    dim = 2 ** n
+    p = np.real(np.diagonal(rho.reshape(dim, dim))).reshape((2,) * n)
+    for q in range(n):
+        if (support >> q) & 1:
+            m = np.eye(2) if confusion is None else np.asarray(confusion[q])
+            f = m[0] - m[1]                           # over the true bit
+            shape = [1] * n
+            shape[n - 1 - q] = 2
+            p = p * f.reshape(shape)
+    return float(p.sum())
+
+
+def np_pauli_value(rho, term, confusion, calib):
+    """Independent check: a Pauli term measured as the Estimator measures
+    it: rotate its X (H) and Y (Sdg, H) qubits with their noise, then the
+    readout-confused parity over its support."""
+    from mlqem_tpu_torch import Circuit
+
+    n = rho.ndim // 2
+    rot = Circuit(n)
+    for q, c in enumerate(reversed(term.pauli)):
+        if c == "X":
+            rot.h(q)
+        elif c == "Y":
+            rot.sdg(q).h(q)
+    if rot.ops:
+        rho = np_noisy_dm(rot, calib, rho)
+    x, z = term.masks()
+    return float(term.coeff.real) * np_readout_parity(rho, confusion, x | z)
+
+
+def np_pauli_ideal(psi, term):
+    """⟨ψ|P|ψ⟩ with P applied qubit by qubit to the complex128 state."""
+    import numpy as np
+
+    n = int(np.log2(psi.size))
+    mats = {"X": [[0, 1], [1, 0]], "Y": [[0, -1j], [1j, 0]],
+            "Z": [[1, 0], [0, -1]]}
+    phi = psi.reshape((2,) * n)
+    for q, c in enumerate(reversed(term.pauli)):
+        if c != "I":
+            phi = np.moveaxis(np.tensordot(np.array(mats[c]), phi,
+                                           axes=([1], [n - 1 - q])),
+                              0, n - 1 - q)
+    return float(term.coeff.real * np.vdot(psi, phi.reshape(-1)).real)
+
+
+def sync_s(fn):
+    """Host seconds of ``fn()`` ending in a synchronize, and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def density_phases(card, cuda, device_model):
+    """Phase 13: IsingLabelPipeline(method="density_matrix") at bench.py's
+    --method density_matrix configuration: checks, then timing. Returns
+    (J of the first checked circuit, its numpy density matrix)."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import IsingLabelPipeline
+    from mlqem_tpu_torch.circuits.circuit import CircuitTensor
+    from mlqem_tpu_torch.circuits.families import IsingModel, IsingOptions
+    from mlqem_tpu_torch.ops.density import batch_density_matrices
+    from mlqem_tpu_torch.ops.density_static import (apply_superop_static,
+                                                    run_density_static,
+                                                    superop_plan)
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(13)
+    t0 = time.perf_counter()
+    pipe = IsingLabelPipeline(device_model, nq=NQ, steps=STEPS, dt=DT, h=1.0,
+                              shots=SHOTS, method="density_matrix",
+                              device=cuda)
+    tables_s = time.perf_counter() - t0
+    exact_pipe = IsingLabelPipeline(device_model, nq=NQ, steps=STEPS, dt=DT,
+                                    h=1.0, shots=None, device=cuda)
+    J = rng.uniform(0.05, 0.6, size=DM_BATCH).astype(np.float32)
+    reset_launches()
+    ideal, noisy = pipe.generate(J, seed=0)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    print(f"dm path: 1 batch of {DM_BATCH} circuits, {SHOTS} shots: "
+          f"launches {counts} (no kernel on this path)")
+    require(not any(counts.values()), f"a kernel ran on the dm path: "
+            f"{counts}")
+    for name, lab in (("ideal", ideal), ("noisy", noisy)):
+        require(lab.shape == (DM_BATCH, NQ), f"dm {name} shape {lab.shape}")
+        require(bool(np.isfinite(lab).all()), f"dm {name} not finite")
+        require(bool((np.abs(lab) <= 1.0 + 1e-6).all()),
+                f"dm {name} leaves [-1, 1]")
+    ideal_err = float(np.abs(ideal[:4] - exact_ideal_z(J[:4], NQ, STEPS,
+                                                       DT)).max())
+    print(f"dm path ideal labels vs complex128 statevector (4 circuits): "
+          f"max|Δ|={ideal_err:.3e}")
+    require(ideal_err <= TOL, f"dm path ideal labels wrong: {ideal_err}")
+
+    # shots=None against an independent complex128 density matrix
+    _, z_exact = exact_pipe.generate(J, seed=0)
+    calib = device_model.to_dict()
+    confusion = np_confusion(calib)
+    t0 = time.perf_counter()
+    rhos, np_err = [], 0.0
+    for k in range(DM_NP_CHECK):
+        qc = IsingModel.make_circuit(IsingOptions(
+            nq=NQ, h=1.0, J=float(J[k]), dt=DT, depth=STEPS), measure=False)
+        rhos.append(np_noisy_dm(qc, calib))
+        want = [np_readout_parity(rhos[-1], confusion, 1 << q)
+                for q in range(NQ)]
+        np_err = max(np_err, float(np.abs(z_exact[k] - want).max()))
+    print(f"dm path shots=None noisy labels vs complex128 numpy density "
+          f"matrix ({DM_NP_CHECK} circuits, readout on): max|Δ|="
+          f"{np_err:.3e} ({time.perf_counter() - t0:.1f} s on the host)")
+    require(np_err <= TOL, f"dm noisy labels disagree with numpy: {np_err}")
+
+    # the engines against each other on a few circuits
+    vals = torch.as_tensor(pipe.params_from_values(J[:DM_CHECK]),
+                           device=cuda)
+    params = pipe.template.bind(vals).params
+    fused = run_density_static(pipe.ct_struct, params, pipe._keys,
+                               pipe._table)
+    engines = {
+        "fuse=False": run_density_static(pipe.ct_struct, params, pipe._keys,
+                                         pipe._table, fuse=False),
+        "pair4": run_density_static(pipe.ct_struct, params, pipe._keys,
+                                    pipe._table, pair4=True),
+        "gather engine (batch_density_matrices)": batch_density_matrices(
+            CircuitTensor(
+                np.broadcast_to(pipe.ct_struct.gate_ids,
+                                (DM_CHECK,) + pipe.ct_struct.gate_ids.shape),
+                np.broadcast_to(pipe.ct_struct.qubits,
+                                (DM_CHECK,) + pipe.ct_struct.qubits.shape),
+                params, NQ),
+            np.broadcast_to(pipe._keys, (DM_CHECK,) + pipe._keys.shape),
+            pipe._table, device=cuda)}
+    for name, dm in engines.items():
+        err = (dm - fused).abs().max().item()
+        print(f"dm engines, {DM_CHECK} circuits: {name} vs fused "
+              f"run_density_static max|Δ|={err:.3e}")
+        require(err <= TOL, f"{name} disagrees with the fused engine: {err}")
+    trace_err = (torch.diagonal(fused, dim1=-2, dim2=-1).sum(-1) - 1).abs(
+        ).max().item()
+    print(f"dm unit trace: max|tr ρ − 1|={trace_err:.3e}")
+    require(trace_err <= TOL, f"dm trace off by {trace_err}")
+    del fused, engines
+
+    # joint shots against shots=None
+    sigma = np.sqrt(np.clip(1.0 - z_exact ** 2, 0.0, None) / SHOTS)
+    dev_sig = np.abs(noisy - z_exact) / np.maximum(sigma, 1e-12)
+    print(f"dm path {SHOTS} joint shots vs shots=None: max |Δ|/σ = "
+          f"{dev_sig.max():.2f} over {dev_sig.size} labels")
+    require(bool((np.abs(noisy - z_exact) <= 5 * sigma + 1e-6).all()),
+            "dm shots stray beyond 5 standard errors")
+
+    # -- timing --------------------------------------------------------------
+    time_batches(pipe.generate, J, rng, card, "dm path ")
+    pvals = torch.as_tensor(pipe.params_from_values(J), device=cuda)
+    split = stage_split(lambda gen, mark: pipe.run(pvals, gen, mark=mark),
+                        cuda)
+    n_ops = len(superop_plan(pipe.ct_struct, pipe.template.bind(
+        pvals[:1]).params, pipe._keys, pipe._table))
+    dm_bytes = DM_BATCH * 4 ** NQ * 8
+    pass_bound_ms = 2 * dm_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"dm path stage split (median of 3 batches, synchronized per "
+          f"stage) [{card}]:")
+    print(f"  (a) noise tables + template (host, once per pipeline): "
+          f"{tables_s * 1e3:.1f} ms")
+    print(f"  (b) op unitaries + fused superop plan ({n_ops} superops from "
+          f"{pipe.ct_struct.max_ops} slots): {split['frame']:.1f} ms")
+    print(f"  (c) superop sweep, {n_ops} passes over {DM_BATCH} x 2^{2 * NQ} "
+          f"complex64 ({dm_bytes / 1e9:.2f} GB): {split['evolve']:.1f} ms = "
+          f"{split['evolve'] / n_ops:.2f} ms a pass; bound {pass_bound_ms:.2f}"
+          f" ms a pass (one read + one write over {HBM_BYTES_PER_S / 1e12} "
+          f"TB/s), {n_ops * pass_bound_ms:.1f} ms a sweep")
+    print(f"  (d) readout confusion + {SHOTS} joint shots: "
+          f"{split['readout']:.1f} ms")
+    print(f"  (c') ideal arm (statevector, {DM_BATCH} circuits, + <Z>): "
+          f"{split['ideal']:.1f} ms")
+
+    # one pass alone, at three qubit pairs, beside a plain copy of the batch
+    dm = torch.zeros((DM_BATCH, 2 ** NQ, 2 ** NQ), dtype=torch.complex64,
+                     device=cuda)
+    dm[:, 0, 0] = 1.0
+    s16 = torch.eye(16, dtype=torch.complex64, device=cuda).expand(
+        DM_BATCH, 16, 16).contiguous()
+    pass_ms = {}
+    for a, b in ((0, 1), (5, 4), (9, 8), (0, 9)):
+        apply_superop_static(dm, s16, a, b, NQ)
+        pass_ms[(a, b)] = min(time_ms(lambda: apply_superop_static(
+            dm, s16, a, b, NQ), 3) for _ in range(2))
+    copy_ms = min(time_ms(lambda: dm.clone(), 3) for _ in range(2))
+    print(f"apply_superop_static alone on {DM_BATCH} x 2^{2 * NQ} complex64 "
+          f"(CUDA events, best of 2 x 3): " + ", ".join(
+              f"(a, b)={ab} {ms:.2f} ms" for ab, ms in pass_ms.items())
+          + f"; a clone of the batch (one read + one write) {copy_ms:.2f} ms"
+          f"; bound {pass_bound_ms:.2f} ms [{card}]")
+    del dm, s16
+    torch.cuda.empty_cache()
+
+    # pair4 on against off, in turns, same inputs
+    params = pipe.template.bind(pvals).params
+    pair_s, probs = {False: [], True: []}, {}
+    for pair4 in (False, True, True, False):
+        secs, dm = sync_s(lambda: run_density_static(
+            pipe.ct_struct, params, pipe._keys, pipe._table, pair4=pair4))
+        pair_s[pair4].append(secs)
+        probs[pair4] = torch.diagonal(dm, dim1=-2, dim2=-1).real.clone()
+        del dm
+    n4 = len(superop_plan(pipe.ct_struct, params[:1], pipe._keys,
+                          pipe._table, pair4=True))
+    pair_err = (probs[True] - probs[False]).abs().max().item()
+    print(f"dm sweep pair4 off ({n_ops} passes) vs on ({n4} passes, "
+          f"256x256 superops) at {DM_BATCH} circuits, plan + sweep, "
+          f"off/on/on/off: off {[round(x * 1e3, 1) for x in pair_s[False]]} "
+          f"ms, on {[round(x * 1e3, 1) for x in pair_s[True]]} ms; "
+          f"diagonals max|Δ|={pair_err:.3e} [{card}]")
+    require(pair_err <= TOL, f"pair4 disagrees: {pair_err}")
+    del probs, params
+    torch.cuda.empty_cache()
+
+    # the batch cap: one batch of DM_CAP_BATCH circuits
+    Jc = rng.uniform(0.05, 0.6, size=DM_CAP_BATCH).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    secs, (ideal_c, noisy_c) = sync_s(lambda: pipe.generate(Jc, seed=3))
+    peak = torch.cuda.max_memory_allocated()
+    require(noisy_c.shape == (DM_CAP_BATCH, NQ)
+            and bool(np.isfinite(noisy_c).all()), "dm cap batch failed")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dm path at {DM_CAP_BATCH} circuits: {secs * 1e3:.1f} ms a batch "
+          f"({DM_CAP_BATCH * 60.0 / secs:.0f} pairs/min), peak "
+          f"{peak / 2 ** 30:.2f} GiB = {peak / DM_CAP_BATCH / 2 ** 20:.2f} "
+          f"MiB a circuit of {total / 2 ** 30:.1f} GiB: cap ≈ "
+          f"{int(total / (peak / DM_CAP_BATCH))} circuits a batch [{card}]")
+    torch.cuda.empty_cache()
+    return float(J[0]), rhos[0]
+
+
+def estimator_phase(card, cuda, device_model, J0, rho0):
+    """Phase 14: the Estimator API on the card at full width: the ideal,
+    noisy (exact and shots), counts and trajectory backends and ZNE on the
+    10-qubit Ising circuit of phase 13's first check."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import (CountsBackend, IdealEstimator,
+                                 NoisyEstimator, PauliSum,
+                                 TrajectoryEstimator, ZNEStrategy, zne)
+    from mlqem_tpu_torch.circuits.families import IsingModel, IsingOptions
+    from mlqem_tpu_torch.circuits.observables import single_z
+
+    qc = IsingModel.make_circuit(IsingOptions(nq=NQ, h=1.0, J=J0, dt=DT,
+                                              depth=STEPS), measure=False)
+    obs = PauliSum([("I" * 9 + "Z", 1.0), ("I" * 8 + "XX", 0.5),
+                    ("I" * 4 + "Y" + "I" * 5, 0.3)])
+    coeff_sum = sum(abs(t.coeff) for t in obs.terms)
+    calib = device_model.to_dict()
+    confusion = np_confusion(calib)
+    psi = exact_states([J0], NQ, STEPS, DT)[0]
+    want_ideal = sum(np_pauli_ideal(psi, t) for t in obs.terms)
+    want_noisy = sum(np_pauli_value(rho0, t, confusion, calib)
+                     for t in obs.terms)
+    z_qubits = (0, 3, 6, 9)
+    z_obs = [single_z(q, NQ) for q in z_qubits]
+    z_ideal = [np_pauli_ideal(psi, o.terms[0]) for o in z_obs]
+
+    zne_cls = zne(NoisyEstimator)
+    reset_launches()
+    secs, vals = {}, {}
+    runs = {
+        "IdealEstimator": lambda: IdealEstimator(device=cuda).run(qc, obs),
+        "NoisyEstimator shots=None": lambda: NoisyEstimator(
+            device_model, device=cuda).run(qc, obs),
+        f"NoisyEstimator shots={SHOTS}": lambda: NoisyEstimator(
+            device_model, shots=SHOTS, seed=14, device=cuda).run(qc, obs),
+        f"TrajectoryEstimator n_traj={EST_TRAJ}": lambda: TrajectoryEstimator(
+            device_model, n_traj=EST_TRAJ, seed=14, device=cuda).run(qc, obs),
+        "NoisyEstimator readout=False, Z terms": lambda: NoisyEstimator(
+            device_model, readout=False, device=cuda).run(
+                [qc] * len(z_obs), z_obs),
+        "zne(NoisyEstimator) readout=False, noise factors (1, 3, 5), "
+        "Z terms": lambda: zne_cls(
+            device_model, readout=False, device=cuda,
+            zne_strategy=ZNEStrategy(noise_factors=(1, 3, 5))).run(
+                [qc] * len(z_obs), z_obs),
+    }
+    for name, run in runs.items():
+        secs[name], job = sync_s(lambda: run().result().values)
+        vals[name] = job
+    backend = CountsBackend(device_model, seed=14, device=cuda)
+    secs["CountsBackend"], probs = sync_s(lambda: backend.run_probs([qc]))
+    counts = backend.run_counts([qc], shots=SHOTS)[0]
+    launches = read_launches()
+    print(f"Estimator API on the Ising circuit (nq={NQ}, {STEPS} steps, "
+          f"J={J0:.4f}), observable {obs}: launches {launches} (no kernel "
+          f"on this path)")
+    require(not any(launches.values()), f"a kernel ran: {launches}")
+    for name in runs:
+        print(f"  {name}: {np.round(vals[name], 6).tolist()} "
+              f"({secs[name] * 1e3:.1f} ms) [{card}]")
+    print(f"  CountsBackend run_probs + run_counts: "
+          f"{secs['CountsBackend'] * 1e3:.1f} ms [{card}]")
+
+    ideal_err = abs(vals["IdealEstimator"][0] - want_ideal)
+    noisy_err = abs(vals["NoisyEstimator shots=None"][0] - want_noisy)
+    print(f"  ideal vs complex128 statevector: |Δ|={ideal_err:.3e}; noisy "
+          f"(readout on) vs phase 13's numpy density matrix with noisy "
+          f"rotations: |Δ|={noisy_err:.3e}")
+    require(ideal_err <= TOL, f"IdealEstimator wrong: {ideal_err}")
+    require(noisy_err <= TOL, f"NoisyEstimator wrong: {noisy_err}")
+    exact = vals["NoisyEstimator shots=None"][0]
+    for name, n in ((f"NoisyEstimator shots={SHOTS}", SHOTS),
+                    (f"TrajectoryEstimator n_traj={EST_TRAJ}", EST_TRAJ)):
+        sigma = coeff_sum / np.sqrt(n)        # each term's samples in [-1, 1]
+        d = abs(vals[name][0] - exact)
+        print(f"  {name} vs shots=None: |Δ|={d:.4f} = {d / sigma:.2f} σ "
+              f"(σ ≤ Σ|c|/√{n} = {sigma:.4f})")
+        require(d <= 5 * sigma, f"{name} strays {d / sigma:.2f} σ")
+
+    dim = 2 ** NQ
+    want_probs = np.real(np.diagonal(rho0.reshape(dim, dim)))
+    conf_probs = want_probs.reshape((2,) * NQ)
+    for q in range(NQ):                   # confusion on each qubit's axis
+        conf_probs = np.moveaxis(np.tensordot(
+            confusion[q], conf_probs, axes=([1], [NQ - 1 - q])), 0,
+            NQ - 1 - q)
+    probs_err = float(np.abs(probs[0] - conf_probs.reshape(-1)).max())
+    z_counts = np.array([sum(c * (1 - 2 * int(bits[NQ - 1 - q]))
+                             for bits, c in counts.items()) / SHOTS
+                         for q in range(NQ)])
+    z_probs = [np_readout_parity(rho0, confusion, 1 << q) for q in range(NQ)]
+    count_dev = float(np.abs(z_counts - z_probs).max() * np.sqrt(SHOTS))
+    print(f"  CountsBackend: probabilities vs numpy max|Δ|={probs_err:.3e}; "
+          f"{sum(counts.values())} counts, per-qubit <Z> max |Δ|/σ ≤ "
+          f"{count_dev:.2f}")
+    require(probs_err <= TOL, f"CountsBackend probabilities: {probs_err}")
+    require(sum(counts.values()) == SHOTS and count_dev <= 5.0,
+            "CountsBackend counts stray")
+
+    z_noisy = vals["NoisyEstimator readout=False, Z terms"]
+    z_zne = vals["zne(NoisyEstimator) readout=False, noise factors (1, 3, 5)"
+                 ", Z terms"]
+    for q, i, n_, m in zip(z_qubits, z_ideal, z_noisy, z_zne):
+        print(f"  Z_{q}: ideal {i:.5f}, noisy {n_:.5f} (|Δ| "
+              f"{abs(n_ - i):.5f}), ZNE {m:.5f} (|Δ| {abs(m - i):.5f})")
+        require(abs(m - i) < abs(n_ - i), f"ZNE did not move Z_{q} toward "
+                f"the ideal value")
+
 
 def main():
     require(os.path.isdir(os.path.join(ROOT, "mlqem_tpu_torch")),
@@ -961,6 +1450,9 @@ def main():
     k2 = frame_phases(card, cuda, device_model)
     torch.cuda.empty_cache()
     k3, k4 = lightcone_phases(card, cuda)
+    torch.cuda.empty_cache()
+    J0, rho0 = density_phases(card, cuda, device_model)
+    estimator_phase(card, cuda, device_model, J0, rho0)
 
     k1 = {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
           "plain_ms": p_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],

@@ -5,8 +5,10 @@ as hand-written CUDA kernels for Hopper: the kicked-Ising evolution
 (``csrc/evolve.cu``), the generic Pauli-frame evolution
 (``csrc/frame_evolve.cu``), one Trotter step (``csrc/fused_step.cu``) and
 the Walsh–Hadamard transform over device-memory planes (``csrc/wht.cu``),
-the last two on the light-cone engine's path. It mirrors the JAX package's module paths and
-imports neither JAX nor ``mlqem_tpu``.
+the last two on the light-cone engine's path; the exact density-matrix
+engines, the Estimator primitives and digital ZNE are plain PyTorch. It
+mirrors the JAX package's module paths and imports neither JAX nor
+``mlqem_tpu``.
 
 Quick start::
 
@@ -27,16 +29,36 @@ Quick start::
                         shots=49, t_chunk=128)
     noisy, ideal = lc.generate_stepwise(J_values, qubits=(11, 25, 39, 54,
                                                           94))
+
+    dev = get_device("fake_lima")
+    qc = Circuit(2).h(0).cx(0, 1)
+    noisy = NoisyEstimator(dev, device="cuda").run(
+        qc, PauliSum("ZZ")).result().values
 """
 
-from .circuits.circuit import Circuit
+from .circuits.circuit import Circuit, stack_circuits, tensorize
+from .circuits.observables import PauliSum
 from .device.model import DeviceModel
 from .device.noise import NoiseModel
 from .device.registry import configurable_device, get_device
+from .mitigation.twirling import sample_twirled_circuits, twirl_circuit
+from .mitigation.zne import (LinearExtrapolator, PolynomialExtrapolator,
+                             RichardsonExtrapolator, ZNEEstimator,
+                             ZNEStrategy, zne)
 from .ops.kicked_ising import KickedIsingEngine
 from .ops.lightcone import LightconeIsing
 from .parallel.datagen import IsingLabelPipeline, make_ising_template
+from .primitives.estimator import (BaseEstimator, CountsBackend,
+                                   EstimatorResult, IdealEstimator, Job,
+                                   NoisyEstimator)
+from .primitives.trajectory_estimator import TrajectoryEstimator
 
-__all__ = ["Circuit", "DeviceModel", "IsingLabelPipeline",
-           "KickedIsingEngine", "LightconeIsing", "NoiseModel",
-           "configurable_device", "get_device", "make_ising_template"]
+__all__ = ["BaseEstimator", "Circuit", "CountsBackend", "DeviceModel",
+           "EstimatorResult", "IdealEstimator", "IsingLabelPipeline", "Job",
+           "KickedIsingEngine", "LightconeIsing", "LinearExtrapolator",
+           "NoiseModel", "NoisyEstimator", "PauliSum",
+           "PolynomialExtrapolator", "RichardsonExtrapolator",
+           "TrajectoryEstimator", "ZNEEstimator", "ZNEStrategy",
+           "configurable_device", "get_device", "make_ising_template",
+           "sample_twirled_circuits", "stack_circuits", "tensorize",
+           "twirl_circuit", "zne"]

@@ -3,8 +3,7 @@
 Host-side (numpy) counterpart of ``mlqem_tpu/circuits/circuit.py``: a
 circuit *batch* is one set of padded arrays
 ``(gate_ids[B, L], qubits[B, L, 2], params[B, L, 3])``, which the torch
-simulators run as one batch. ``Circuit.inverse`` waits for the port of the
-transpiler (``transpile/lower.py``).
+simulators run as one batch.
 """
 from __future__ import annotations
 
@@ -76,6 +75,17 @@ class Circuit:
             raise ValueError("qubit count mismatch in compose")
         out = self.copy()
         out.ops.extend(other.ops)
+        return out
+
+    def inverse(self) -> "Circuit":
+        """Adjoint circuit (structural ops dropped)."""
+        from ..transpile.lower import invert_op  # local import, avoids cycle
+
+        out = Circuit(self.num_qubits, dict(self.metadata))
+        for op in reversed(self.ops):
+            if is_structural(op.name):
+                continue
+            out.ops.append(invert_op(op))
         return out
 
     # -- sugar for common gates --------------------------------------------

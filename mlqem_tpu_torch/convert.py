@@ -6,7 +6,7 @@ the JAX side produced.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -92,3 +92,32 @@ def pipeline_tables_from_numpy(pauli_probs: np.ndarray,
                          f"{pauli_probs.shape}")
     return PipelineTables(torch.as_tensor(pauli_probs, device=device),
                           _confusion_tensor(confusion, device))
+
+
+def noise_table_from_numpy(key_ids: np.ndarray, table: np.ndarray,
+                           device: Union[str, torch.device]
+                           ) -> Tuple[np.ndarray, torch.Tensor]:
+    """(key_ids int32 on the host, table complex64 [K, 16, 16] on
+    ``device``) from the JAX ``compile_noise_table`` output, for the
+    density-matrix engines (``run_density_static``, ``run_density``) or a
+    pipeline's ``_keys``/``_table``."""
+    key_ids = np.asarray(key_ids, np.int32)
+    table = np.array(table, np.complex64)
+    if table.ndim != 3 or table.shape[1:] != (16, 16):
+        raise ValueError(f"table must be [K, 16, 16], got {table.shape}")
+    if key_ids.size and not 0 <= key_ids.min() <= key_ids.max() < len(table):
+        raise ValueError(f"key_ids must index the table's {len(table)} "
+                         f"entries, got [{key_ids.min()}, {key_ids.max()}]")
+    return key_ids, torch.as_tensor(table, device=device)
+
+
+def density_from_numpy(dm: np.ndarray, device: Union[str, torch.device]
+                       ) -> torch.Tensor:
+    """A complex64 density-matrix batch [..., 2^n, 2^n] on ``device`` from
+    a JAX one (``batch_density_matrices_from``'s ``dm0``)."""
+    dm = np.array(dm, np.complex64)
+    dim = dm.shape[-1] if dm.ndim >= 2 else 0
+    if dm.ndim < 2 or dm.shape[-2] != dim or dim < 4 or dim & (dim - 1):
+        raise ValueError(f"dm must be [..., 2^n, 2^n] with n >= 2, got "
+                         f"{dm.shape}")
+    return torch.as_tensor(dm, device=device)

@@ -6,13 +6,16 @@ Pauli-transfer-matrix diagonal. The kicked-Ising engine samples one of the
 16 two-qubit Paulis after every CX from these tables; the generic engines
 sample one after every op (:func:`twirled_noise_tables`).
 
-:func:`run_trajectories_presampled` is the generic trajectory engine: each
-trajectory is a statevector run in which every op's 4x4 is multiplied by
-its sampled Pauli (any gate set; plain torch).
+:func:`run_trajectories_presampled` is the generic trajectory engine for a
+template: each trajectory is a statevector run in which every op's 4x4 is
+multiplied by its sampled Pauli (any gate set; plain torch).
+:func:`_batch_trajectories` does the same for a batch of circuits that
+differ, each with its own per-op noise table, and draws the Paulis itself
+from one ``torch.Generator`` (the JAX package takes a key per circuit).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -20,7 +23,9 @@ import torch
 from ..circuits.circuit import CircuitTensor
 from ..device.noise import NoiseModel, op_channels
 from .channels import Channel
-from .statevector import apply_op
+from .density import apply_readout_confusion
+from . import sampling
+from .statevector import _matvec4, apply_op, probabilities, z_expectations
 from .unitaries import COMPLEX_DTYPE, op_unitaries
 
 # the 16 two-qubit Paulis in (a=MSB, b=LSB) order: index = 4*pa + pb
@@ -140,3 +145,81 @@ def run_trajectories_presampled(ct_struct: CircuitTensor,
         state = apply_op_batched_mat(state, full, int(qubits[l, 0]),
                                      int(qubits[l, 1]), n)
     return state
+
+
+def _batch_trajectories(gate_ids, qubits, params, pauli_probs,
+                        generator: torch.Generator, n_traj: int,
+                        num_qubits: int) -> torch.Tensor:
+    """Trajectory statevectors for a circuit batch: complex64
+    [B, n_traj, 2^n] on the generator's device.
+
+    gate_ids [B, L], qubits [B, L, 2], params [B, L, 3] (one circuit per
+    row) and pauli_probs [B, L, 16] (per-op twirled noise). The Pauli
+    after every (circuit, trajectory, op) is drawn from ``generator``; each
+    row then gathers with its own qubit pair.
+    """
+    n = max(num_qubits, 2)
+    device = generator.device
+    params = torch.as_tensor(params, dtype=torch.float32, device=device)
+    mats = op_unitaries(gate_ids, params)                   # [B, L, 4, 4]
+    B, L = mats.shape[:2]
+    probs = torch.as_tensor(np.asarray(pauli_probs, np.float32),
+                            device=device)
+    choices = sampling.sample_small_categorical(
+        probs[:, None], (B, n_traj, L), generator).long()
+    paulis = torch.as_tensor(PAULI_4X4, device=device)
+    q = torch.as_tensor(np.repeat(np.asarray(qubits, np.int64).reshape(
+        B, 1, L, 2), n_traj, axis=1).reshape(B * n_traj, L, 2),
+        device=device)
+    state = torch.zeros((B * n_traj, 2 ** n), dtype=COMPLEX_DTYPE,
+                        device=device)
+    state[:, 0] = 1.0
+    for l in range(L):
+        full = _matvec4(paulis[choices[:, :, l]], mats[:, None, l])
+        state = apply_op(state, full.reshape(B * n_traj, 4, 4),
+                         q[:, l, 0], q[:, l, 1], n)
+    return state.reshape(B, n_traj, 2 ** n)
+
+
+def run_trajectories(ct: CircuitTensor, pauli_probs, n_traj: int,
+                     generator: torch.Generator) -> torch.Tensor:
+    """Trajectory statevectors for ONE circuit: complex64 [n_traj, 2^n].
+
+    pauli_probs: float32[L, 16] per-op twirled noise.
+    """
+    return _batch_trajectories(
+        np.asarray(ct.gate_ids)[None], np.asarray(ct.qubits)[None],
+        torch.as_tensor(ct.params)[None], np.asarray(pauli_probs)[None],
+        generator, n_traj, ct.num_qubits)[0]
+
+
+def trajectory_z_labels(ct: CircuitTensor, noise: Optional[NoiseModel],
+                        n_traj: int, shots_per_traj: Optional[int],
+                        seed: int = 0,
+                        readout: Optional[np.ndarray] = None,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> np.ndarray:
+    """Noisy per-qubit ⟨Z⟩ labels [B, nq] for a circuit batch via
+    trajectories, as numpy.
+
+    Total effective shots = n_traj × shots_per_traj (or the exact
+    trajectory average when shots_per_traj is None). Readout error is
+    applied to each trajectory's outcome distribution before sampling.
+    The draws come from one generator on ``device`` seeded with ``seed``.
+    """
+    nq = ct.num_qubits
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    states = _batch_trajectories(ct.gate_ids, ct.qubits, ct.params,
+                                 twirled_noise_tables(ct, noise), generator,
+                                 n_traj, nq)                 # [B, T, dim]
+    probs = probabilities(states)
+    del states
+    if readout is not None:
+        probs = apply_readout_confusion(
+            probs, torch.as_tensor(np.asarray(readout, np.float32),
+                                   device=probs.device), nq)
+    if shots_per_traj is None:
+        return z_expectations(probs, nq).mean(dim=1).cpu().numpy()
+    return sampling.sampled_z_expectations(
+        probs, shots_per_traj, nq, generator).mean(dim=1).cpu().numpy()

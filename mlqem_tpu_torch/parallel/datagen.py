@@ -6,13 +6,20 @@ Hamiltonian parameters binds into it on the device, and the whole label
 pipeline runs as batched torch work:
 
 (a) the noise tables, on the host, once per pipeline: per-op twirled Pauli
-    probabilities (:func:`twirled_noise_tables`) and readout confusion;
-(b) the Pauli draws of every (circuit, trajectory, op), then, for
-    ``method="frame"``, the integer frame walk and the sign-folded angles
-    (:func:`frame_theta_eff`);
+    probabilities (:func:`twirled_noise_tables`), the density-matrix
+    engine's superoperator table (:func:`compile_noise_table`) and readout
+    confusion;
+(b) for the trajectory methods, the Pauli draws of every (circuit,
+    trajectory, op), then, for ``method="frame"``, the integer frame walk
+    and the sign-folded angles (:func:`frame_theta_eff`); for
+    ``density_matrix``, the op unitaries and the fused superop plan
+    (:func:`superop_plan`);
 (c) the noisy evolution: kernel K2 (:func:`evolve_frame_marginals`) for
-    ``frame``, the gather trajectory engine for ``trajectory_gather``;
-(d) the frame flip, readout confusion, ⟨Z⟩ and binomial shots;
+    ``frame``, the gather trajectory engine for ``trajectory_gather``, the
+    superop sweep (:func:`apply_plan`) for ``density_matrix``;
+(d) the frame flip, readout confusion, ⟨Z⟩ and binomial shots; for
+    ``density_matrix``, readout confusion on the exact distribution, then
+    ⟨Z⟩ or joint shots;
 (c') the ideal arm: the statevector of every bound circuit.
 """
 from __future__ import annotations
@@ -29,7 +36,8 @@ from ..circuits.parameters import (CircuitTemplate, Parameter,
 from ..device.model import DeviceModel
 from ..device.noise import NoiseModel, compile_noise_table, readout_matrices
 from ..ops import sampling
-from ..ops.density import apply_readout_confusion
+from ..ops.density import apply_readout_confusion, dm_probabilities
+from ..ops.density_static import apply_plan, superop_plan
 from ..ops.frame_trajectory import (frame_marginals_to_z, frame_supported,
                                     frame_theta_eff)
 from ..ops.kernels.frame_evolve import (evolve_frame_marginals,
@@ -77,7 +85,10 @@ class IsingLabelPipeline:
     * ``"trajectory_gather"``: the gather trajectory engine (any gate set);
     * ``"trajectory"``: ``"frame"`` on a CUDA device when the template is
       frame-supported, else ``"trajectory_gather"``;
-    * ``"density_matrix"`` (the JAX package's default): not ported yet.
+    * ``"density_matrix"`` (the default, as in the JAX package): the
+      exact noisy density matrix of every circuit (the static superop
+      engine), readout confusion, then ⟨Z⟩ or joint shots. ``n_traj``
+      and ``use_kernel`` do not apply.
 
     ``use_kernel``: None runs K2 on a CUDA device and its plain version on
     the CPU; True asks for the kernel (CUDA only); False runs the plain
@@ -102,11 +113,6 @@ class IsingLabelPipeline:
         if self.method not in METHODS:
             raise ValueError(f"method must be one of {METHODS}, got "
                              f"{self.method!r}")
-        if self.method == "density_matrix":
-            raise NotImplementedError(
-                "method='density_matrix' waits for the port of the exact "
-                "engines (ROADMAP slice 3); use 'frame', 'trajectory' or "
-                "'trajectory_gather'")
         if self.use_kernel and self.device.type != "cuda":
             raise ValueError("use_kernel=True needs a CUDA device, got "
                              f"{self.device}")
@@ -118,7 +124,7 @@ class IsingLabelPipeline:
         # shared topology → the noise keys are identical across the batch
         self.ct_struct = self.template.bind_host(
             np.zeros(self.template.num_parameters, np.float32))
-        # the density-matrix engine's superoperator table (slice 3)
+        # the density-matrix engine's superoperator table
         self._keys, self._table = compile_noise_table(self.ct_struct, nm)
         ro = readout_matrices(nm, self.nq) if self.readout else None
         self.tables = PipelineTables(
@@ -151,17 +157,52 @@ class IsingLabelPipeline:
         on the device.
 
         ``mark``, if given, is called with a stage's name as each stage
-        has been enqueued ("frame", "evolve", "readout", "ideal"), so a
-        caller can time the stages.
+        has been enqueued ("frame", "evolve", "readout", "ideal"; for
+        ``density_matrix`` "frame" closes the superop plan and "evolve"
+        the sweep), so a caller can time the stages.
         """
         mark = mark or (lambda stage: None)
-        nq, T = self.nq, self.n_traj
         ct = self.template.bind(params)             # params [B, L, 3]
+        if self.method == "density_matrix":
+            noisy = self._noisy_density(ct.params, generator, mark)
+        else:
+            noisy = self._noisy_trajectories(ct.params, generator, mark)
+        mark("readout")
+        ideal = z_expectations(probabilities(statevector(ct)), self.nq)
+        mark("ideal")
+        return ideal, noisy
+
+    def _noisy_density(self, params: torch.Tensor,
+                       generator: torch.Generator,
+                       mark: Callable[[str], None]) -> torch.Tensor:
+        """Noisy ⟨Z_q⟩ [B, nq] from exact density matrices: the superop
+        plan, the sweep, readout confusion on the outcome distribution,
+        then ⟨Z⟩ (``shots=None``) or joint shots read bit by bit."""
+        nq = self.nq
+        plan = superop_plan(self.ct_struct, params, self._keys, self._table)
+        mark("frame")
+        dms = apply_plan(plan, params.shape[0], max(nq, 2), self.device)
+        probs = dm_probabilities(dms)
+        del dms
+        mark("evolve")
+        if self.tables.confusion is not None:
+            probs = apply_readout_confusion(probs, self.tables.confusion, nq)
+        if self.shots is None:
+            return z_expectations(probs, nq)
+        return sampling.sampled_z_expectations(probs, self.shots, nq,
+                                               generator)
+
+    def _noisy_trajectories(self, params: torch.Tensor,
+                            generator: torch.Generator,
+                            mark: Callable[[str], None]) -> torch.Tensor:
+        """Noisy ⟨Z_q⟩ [B, nq] from Pauli-twirled trajectories (the frame
+        and gather methods), with binomial shots."""
+        nq, T = self.nq, self.n_traj
         B = params.shape[0]
         choices = self.sample_draws(B, generator)
         confusion = self.tables.confusion
         if self.method == "frame":
-            theta_eff, fx, plan = frame_theta_eff(self.ct_struct, ct.params,
+            theta_eff, fx, plan = frame_theta_eff(self.ct_struct, params,
                                                   choices)
             del choices
             mark("frame")
@@ -174,7 +215,7 @@ class IsingLabelPipeline:
                                           confusion)
         else:
             mark("frame")
-            states = run_trajectories_presampled(self.ct_struct, ct.params,
+            states = run_trajectories_presampled(self.ct_struct, params,
                                                  choices, nq)
             del choices
             probs = probabilities(states)
@@ -184,20 +225,15 @@ class IsingLabelPipeline:
                 probs = apply_readout_confusion(probs, confusion, nq)
             z_traj = z_expectations(probs, nq)      # [B, T, nq]
         if self.shots is None:
-            noisy = z_traj.mean(dim=1)
-        else:
-            # the <Z_q> estimate from S joint samples is marginally
-            # Binomial(S, p1_q): sample that per qubit
-            shots_per_traj = max(1, self.shots // T)
-            p1 = ((1.0 - z_traj) / 2.0).clamp(0.0, 1.0)
-            counts = torch.binomial(
-                torch.full_like(p1, float(shots_per_traj)), p1,
-                generator=generator)
-            noisy = (1.0 - 2.0 * counts / shots_per_traj).mean(dim=1)
-        mark("readout")
-        ideal = z_expectations(probabilities(statevector(ct)), nq)
-        mark("ideal")
-        return ideal, noisy
+            return z_traj.mean(dim=1)
+        # the <Z_q> estimate from S joint samples is marginally
+        # Binomial(S, p1_q): sample that per qubit
+        shots_per_traj = max(1, self.shots // T)
+        p1 = ((1.0 - z_traj) / 2.0).clamp(0.0, 1.0)
+        counts = torch.binomial(
+            torch.full_like(p1, float(shots_per_traj)), p1,
+            generator=generator)
+        return (1.0 - 2.0 * counts / shots_per_traj).mean(dim=1)
 
     def params_from_values(self, J_values: np.ndarray,
                            h_values: Optional[np.ndarray] = None

@@ -462,3 +462,59 @@ def test_lightcone_kernel_matches_plain_path(nq, steps, cuda_device):
     assert launches[1] == (0, 0)
     for got, want in zip(*out):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_density_engines_refuse_tf32(cuda_device):
+    """The exact path's superop products run at IEEE f32 (complex64 GEMMs
+    follow ``allow_tf32`` too): with TF32 on, the dm pipeline and the
+    gather engine raise rather than round."""
+    from mlqem_tpu_torch import Circuit, NoisyEstimator, PauliSum
+
+    pipe = IsingLabelPipeline(configurable_device(5, seed=0), nq=5, steps=2,
+                              device=cuda_device, shots=None)
+    est = NoisyEstimator(configurable_device(3, seed=0), device=cuda_device)
+    qc = Circuit(3).h(0).cx(0, 1).rx(0.3, 2)
+    J = np.array([0.2, 0.4])
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="TF32"):
+            pipe.generate(J)
+        with pytest.raises(RuntimeError, match="TF32"):
+            est.run(qc, PauliSum("XZY"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    _, noisy = pipe.generate(J)
+    assert np.isfinite(noisy).all()
+
+
+def test_density_pipeline_card_matches_cpu(cuda_device):
+    """method="density_matrix" with shots=None: the card's labels equal
+    the CPU's to 1e-5 (no draws on this path)."""
+    kw = dict(nq=6, steps=3, shots=None)
+    J = np.random.default_rng(0).uniform(0.05, 0.6, size=16)
+    got = IsingLabelPipeline(configurable_device(6, seed=0),
+                             device=cuda_device, **kw).generate(J)
+    want = IsingLabelPipeline(configurable_device(6, seed=0), device="cpu",
+                              **kw).generate(J)
+    for g, w in zip(got, want):
+        assert np.abs(g - w).max() <= 1e-5
+
+
+@pytest.mark.parametrize("fuse,pair4", [(False, False), (True, False),
+                                        (True, True)])
+def test_density_engine_card_matches_cpu(fuse, pair4, cuda_device):
+    """run_density_static's three plans on the card against the CPU."""
+    from mlqem_tpu_torch.device.noise import NoiseModel, compile_noise_table
+    from mlqem_tpu_torch.ops.density_static import run_density_static
+
+    t = make_ising_template(7, 2, "Z", 0.25, h=1.0)
+    ct = t.bind_host(np.zeros(t.num_parameters, np.float32))
+    keys, table = compile_noise_table(ct, NoiseModel.from_device(
+        configurable_device(7, seed=0)))
+    params = np.random.default_rng(1).uniform(
+        -1, 1, size=(5,) + ct.params.shape).astype(np.float32)
+    got = run_density_static(ct, torch.as_tensor(params, device=cuda_device),
+                             keys, table, fuse=fuse, pair4=pair4)
+    want = run_density_static(ct, torch.as_tensor(params), keys, table)
+    assert (got.cpu() - want).abs().max().item() <= 1e-6

@@ -104,8 +104,12 @@ def test_shot_noise_within_five_sigma():
 
 def test_method_dispatch_and_refusals():
     dev = configurable_device(4, seed=0)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        IsingLabelPipeline(dev, nq=4, steps=1, device="cpu")
+    default = IsingLabelPipeline(dev, nq=4, steps=1, device="cpu",
+                                 shots=None)
+    assert default.method == "density_matrix"      # the JAX default
+    ideal, noisy = default.generate(np.array([0.2, 0.4]))
+    assert ideal.shape == noisy.shape == (2, 4)
+    assert np.isfinite(noisy).all() and (np.abs(noisy) <= 1).all()
     with pytest.raises(ValueError, match="method"):
         IsingLabelPipeline(dev, nq=4, steps=1, device="cpu", method="dm")
     with pytest.raises(ValueError, match="CUDA"):

@@ -51,8 +51,23 @@ def test_ast_scan_catches_a_jax_import(tmp_path):
 def test_exports():
     for name in ("KickedIsingEngine", "configurable_device", "get_device",
                  "NoiseModel", "Circuit", "IsingLabelPipeline",
-                 "make_ising_template", "LightconeIsing"):
+                 "make_ising_template", "LightconeIsing",
+                 "BaseEstimator", "IdealEstimator", "NoisyEstimator",
+                 "TrajectoryEstimator", "CountsBackend", "Job",
+                 "EstimatorResult", "LinearExtrapolator",
+                 "PolynomialExtrapolator", "RichardsonExtrapolator",
+                 "ZNEEstimator", "ZNEStrategy", "zne", "twirl_circuit",
+                 "sample_twirled_circuits", "stack_circuits", "tensorize",
+                 "PauliSum"):
         assert hasattr(mlqem_tpu_torch, name)
+    assert set(mlqem_tpu_torch.__all__) <= set(dir(mlqem_tpu_torch))
+    # the state carriers from the JAX package
+    from mlqem_tpu_torch import convert
+    for name in ("device_from_jax_dict", "engine_tables_from_numpy",
+                 "circuit_tensor_from_numpy", "template_from_numpy",
+                 "pipeline_tables_from_numpy", "noise_table_from_numpy",
+                 "density_from_numpy"):
+        assert callable(getattr(convert, name))
 
 
 def _check_kernel_source(name, entry, trig=True):
