@@ -59,7 +59,27 @@ Phases, each of which exits non-zero on failure:
     values inside their readout bounds;
 12. time the light-cone path: seconds per circuit for each arm, the stages
     of one window chunk, peak device memory, and the artifact's derived
-    engine time.
+    engine time;
+13. run the exact density-matrix path (``IsingLabelPipeline(method=
+    "density_matrix")``, 512 circuits) against an independent complex128
+    numpy density matrix, its engines against each other, and time it;
+14. run the Estimator API, ``CountsBackend`` and ``zne(NoisyEstimator)`` on
+    the 10-qubit circuit against numpy;
+15. the learning stack's flat-feature path: ``tomography_sweep`` (more data,
+    lower mitigated RMSE), ``RandomForestRegressor(100).predict`` on the
+    card against the same forest on the CPU (≤ 1e-6),
+    ``learning(NoisyEstimator)`` with the forest against its predict on
+    ``encode_data`` (≤ 1e-6), ``train_mlp(MLP1(64, 4))`` on 58-dim
+    features (finite, falling loss); the forest's fit and predict times;
+16. the GNN path: ``generate_exp_val_dataset`` (fake_lima, 4 qubits, 200
+    entries), the paper's GNN (``ExpValCircuitGraphModel3``, hidden 15)
+    on the card against the CPU (forward ≤ 1e-5; one Adam step, dropout
+    off, ≤ 1e-5 but for the null-gradient biases), ``train_gnn_mitigation``
+    at its defaults (finite history, validation loss falls),
+    ``ngem(NoisyEstimator)`` against ``predict`` (≤ 1e-5); the dataset
+    time, train-step ms and its device busy share (``torch.profiler``),
+    s per epoch, predict graphs/s, RMSEs, peak memory.
+    No kernel runs in phases 13-16.
 
 Every kernel's record holds its bound: the larger of the bytes it must move
 over 3.35 TB/s and the f32 operations it must do over 67 TFLOP/s (the
@@ -1283,6 +1303,302 @@ def estimator_phase(card, cuda, device_model, J0, rho0):
                 f"the ideal value")
 
 
+# -- the learning stack (phases 15-16) ----------------------------------------
+def decode_observable(row, nq):
+    """The PauliSum of one ``encode_pauli_sum_op`` row: [coeff, then per
+    qubit the one-hot over I, Z, Y, X, leftmost = highest qubit]."""
+    import numpy as np
+
+    from mlqem_tpu_torch import PauliSum
+
+    pauli = "".join("IZYX"[int(np.argmax(row[1 + 4 * k:5 + 4 * k]))]
+                    for k in range(nq))
+    return PauliSum([(pauli, float(row[0]))])
+
+
+def device_busy(fn, reps):
+    """Device kernel time against wall time of ``reps`` calls of ``fn``
+    under ``torch.profiler`` (CUPTI), as a line of text."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_us = sum(e.self_device_time_total for e in rows)
+    if not kernel_us:
+        return "device time not measured (the profiler saw no kernel)"
+    launches = sum(e.count for e in rows)
+    return (f"{launches / reps:.0f} kernels a call, device busy "
+            f"{kernel_us / reps / 1e3:.3f} ms of {wall_us / reps / 1e3:.3f} "
+            f"ms wall a call (profiled) = {100 * kernel_us / wall_us:.1f}% "
+            f"busy, {100 - 100 * kernel_us / wall_us:.1f}% idle")
+
+
+def learning_flat_phase(card, cuda):
+    """Phase 15: the flat-feature path on the card: the tomography sweep,
+    the forest (fit on the host, predict on the card) against the same
+    forest on the CPU, learning(NoisyEstimator) with it, and MLP1 on the
+    58-dim features."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import (MLP1, IdealEstimator, NoisyEstimator,
+                                 RandomForestRegressor, generate_exp_val_dataset,
+                                 get_device, learning, tomography_sweep,
+                                 train_mlp)
+    from mlqem_tpu_torch.circuits.circuit import Circuit
+    from mlqem_tpu_torch.circuits.observables import PauliSum, PauliTerm, \
+        single_z
+    from mlqem_tpu_torch.data.encoders import encode_data, encode_pauli_sum_op
+    from mlqem_tpu_torch.mitigation.learning import ModelProcessor
+    from mlqem_tpu_torch.transpile.lower import transpile
+    from mlqem_tpu_torch.workflows.gnn_training import tomography_features
+
+    dev = get_device("fake_lima")
+    props = dev.properties()
+    reset_launches()
+    t0 = time.perf_counter()
+    secs, rows = sync_s(lambda: tomography_sweep(
+        dev, train_sizes=(16, 128), test_size=40, seed=3, device=cuda))
+    print(f"tomography_sweep(fake_lima, (16, 128), test 40, seed 3): "
+          + "; ".join(f"{r['train_size']} → mitigated RMSE "
+                      f"{r['rmse_mitigated']:.4f}" for r in rows)
+          + f" (noisy {rows[0]['rmse_noisy']:.4f}); {secs:.2f} s [{card}]")
+    require(rows[1]["rmse_mitigated"] < rows[0]["rmse_mitigated"],
+            "the tomography sweep did not improve with more data")
+
+    # the sweep's own dataset and features (168 entries, 3 qubits)
+    entries = generate_exp_val_dataset(dev, n_qubits=3, circuit_depth=3,
+                                       num_entries=168, seed=3, device=cuda)
+    X, y = tomography_features(entries, props)
+    fit_s, rf = sync_s(lambda: RandomForestRegressor(
+        100, random_state=3, device=cuda).fit(X[:128], y[:128]))
+    rf_cpu = RandomForestRegressor(100, device="cpu").set_stacked(
+        *[t.cpu().numpy() for t in rf._stacked], rf._depth)
+    rf_cpu._single_output = rf._single_output
+    err = float(np.abs(rf.predict(X[128:]) - rf_cpu.predict(X[128:])).max())
+    big = np.tile(X, (4096 // len(X) + 1, 1))[:4096]
+    rf.predict(big)
+    pred_ms = {n: min(sync_s(lambda: rf.predict(big[:n]))[0]
+                      for _ in range(5)) * 1e3 for n in (40, 4096)}
+    print(f"RandomForestRegressor(100) on {X.shape[1]} features: fit on the "
+          f"host (128 rows) {fit_s:.2f} s, depth {rf._depth}, "
+          f"{rf._stacked[0].shape[1]} nodes a tree; predict on the card vs "
+          f"the CPU max|Δ|={err:.3e}; predict {pred_ms[40]:.2f} ms at 40 "
+          f"rows, {pred_ms[4096]:.2f} ms at 4096 rows (host in, host out, "
+          f"best of 5) [{card}]")
+    require(err <= 1e-6, f"forest predict on the card vs the CPU: {err}")
+
+    circs = [Circuit.from_dict(e.circuit) for e in entries[128:136]]
+    obs = [decode_observable(e.observable[0], 3) for e in entries[128:136]]
+    res = learning(NoisyEstimator, ModelProcessor(rf, dev))(
+        dev, device=cuda).run(circs, obs).result()
+    want = []
+    for c, o, m in zip(circs, obs, res.metadata):
+        term = o.terms[0]
+        Xq, _ = encode_data([transpile(c, basis=dev.basis_gates)], props,
+                            [[0.0]], [[m["original_value"]]], 1,
+                            meas_bases=encode_pauli_sum_op(PauliSum([
+                                PauliTerm(term.pauli, 1.0)])))
+        want.append(rf.predict(Xq)[0] * float(np.real(term.coeff)))
+    err = float(np.abs(res.values - np.asarray(want)).max())
+    print(f"learning(NoisyEstimator) + ModelProcessor(forest), 8 circuits: "
+          f"vs the forest's predict on encode_data max|Δ|={err:.3e}")
+    require(err <= 1e-6, f"learning(NoisyEstimator) disagrees: {err}")
+
+    # MLP1(64, 4) on the 58-dim per-qubit features of 4-qubit circuits
+    circs = [Circuit.from_dict(e.circuit) for e in generate_exp_val_dataset(
+        dev, n_qubits=4, circuit_depth=3, num_entries=256, seed=15,
+        device=cuda)]
+    z = [single_z(q, 4) for q in range(4)]
+    ideal = np.stack([IdealEstimator(device=cuda).run(circs, o).result()
+                      .values for o in z], axis=1)
+    noisy = np.stack([NoisyEstimator(dev, device=cuda).run(circs, o).result()
+                      .values for o in z], axis=1)
+    X4, y4 = encode_data(circs, props, ideal, noisy, 4)
+    require(X4.shape == (256, 58), f"features {X4.shape}, not (256, 58)")
+    secs, (_, hist) = sync_s(lambda: train_mlp(
+        MLP1(64, 4, input_size=58), X4, y4, num_epochs=30, batch_size=32,
+        learning_rate=3e-3, seed=0, device=cuda))
+    losses = hist["train_loss"]
+    print(f"train_mlp(MLP1(64, 4)) on 256 x 58 features, 30 epochs: train "
+          f"loss {losses[0]:.5f} → {losses[-1]:.5f}, val "
+          f"{hist['val_loss'][0]:.5f} → {min(hist['val_loss']):.5f} (best); "
+          f"{secs:.2f} s [{card}]")
+    require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+            "MLP1's training loss did not fall")
+    launches = read_launches()
+    require(not any(launches.values()), f"a kernel ran: {launches}")
+    torch.cuda.synchronize()
+    print(f"phase 15 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def learning_gnn_phase(card, cuda):
+    """Phase 16: the GNN path on the card: the dataset, the paper's GNN
+    against the CPU (forward, one Adam step), train_gnn_mitigation at its
+    defaults, and ngem(NoisyEstimator) against predict."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import (ExpValCircuitGraphModel3, ExpValDataset,
+                                 NoisyEstimator, generate_exp_val_dataset,
+                                 get_device, ngem, predict,
+                                 train_gnn_mitigation)
+    from mlqem_tpu_torch.circuits.circuit import Circuit
+    from mlqem_tpu_torch.data.encoders import encode_pauli_sum_op
+    from mlqem_tpu_torch.data.generators import ExpValueEntry
+    from mlqem_tpu_torch.data.graph import circuit_to_graph_data_json
+    from mlqem_tpu_torch.models.mlp import Dropout, init_params
+    from mlqem_tpu_torch.models.train import gnn_inputs, train_step
+
+    dev = get_device("fake_lima")
+    props = dev.properties()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data_s, entries = sync_s(lambda: generate_exp_val_dataset(
+        dev, n_qubits=4, circuit_depth=3, num_entries=200, seed=0,
+        device=cuda))
+    ideal = np.array([e.ideal_exp_value for e in entries])
+    print(f"generate_exp_val_dataset(fake_lima, 4 qubits, depth ≤ 3, 200 "
+          f"entries) on the card's Estimators: {data_s:.2f} s; "
+          f"{int((np.abs(ideal) < 1e-6).sum())} of 200 ideal labels within "
+          f"1e-6 of 0 [{card}]")
+
+    arrays = dict(ExpValDataset(entries).arrays)
+    arrays["observable"] = arrays["observable"].mean(axis=1)
+    y = arrays.pop("y")[:, None]
+
+    def batch(sel, device):
+        b = {k: torch.as_tensor(v[sel], device=device)
+             for k, v in arrays.items()}
+        return gnn_inputs(b), torch.as_tensor(y[sel], device=device)
+
+    cpu = ExpValCircuitGraphModel3(15, 1, num_node_features=22)
+    init_params(cpu, torch.Generator().manual_seed(16))
+    for m in cpu.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    gpu = copy.deepcopy(cpu).to(cuda)
+    sel = np.arange(32)
+    (args_c, y_c), (args_g, y_g) = batch(sel, "cpu"), batch(sel, cuda)
+    with torch.no_grad():
+        fwd_err = (gpu.eval()(*args_g).cpu()
+                   - cpu.eval()(*args_c)).abs().max().item()
+    for model, args, yb in ((cpu, args_c, y_c), (gpu, args_g, y_g)):
+        train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                   args, yb)
+    # Adam's first step is lr·g/(|g| + 1e-8): where |g| < 1e-6 rounding
+    # decides a step of up to lr (the null-gradient biases among them)
+    grad_err = step_err = loose_err = 0.0
+    n_loose = 0
+    for p, q in zip(cpu.parameters(), gpu.parameters()):
+        g = q.grad.cpu()
+        grad_err = max(grad_err, (g - p.grad).abs().max().item())
+        d = (q.detach().cpu() - p.detach()).abs()
+        tight = torch.maximum(g.abs(), p.grad.abs()) >= 1e-6
+        n_loose += int((~tight).sum())
+        if tight.any():
+            step_err = max(step_err, d[tight].max().item())
+        if (~tight).any():
+            loose_err = max(loose_err, d[~tight].max().item())
+    stats_err = max((c.cpu() - b).abs().max().item()
+                    for b, c in zip(cpu.buffers(), gpu.buffers()))
+    n_params = sum(p.numel() for p in cpu.parameters())
+    print(f"ExpValCircuitGraphModel3(hidden 15, heads 5/3), batch 32: eval "
+          f"forward card vs CPU max|Δ|={fwd_err:.3e}; one Adam step "
+          f"(dropout off): gradients max|Δ|={grad_err:.3e}, parameters "
+          f"max|Δ|={step_err:.3e} where |g| ≥ 1e-6 ({n_params - n_loose} of "
+          f"{n_params}), {loose_err:.3e} on the {n_loose} others (Adam's "
+          f"bound: lr a side), running statistics {stats_err:.3e}")
+    require(fwd_err <= 1e-5, f"GNN forward card vs CPU: {fwd_err}")
+    require(grad_err <= 1e-5, f"gradients card vs CPU: {grad_err}")
+    require(max(step_err, stats_err) <= 1e-5,
+            f"one Adam step card vs CPU: {step_err}, {stats_err}")
+    require(loose_err <= 2e-3, f"near-zero-gradient elements moved "
+            f"{loose_err}")
+
+    train_s, out = sync_s(lambda: train_gnn_mitigation(dev, entries=entries,
+                                                       device=cuda))
+    hist = out["history"]
+    n_epochs = len(hist["val_loss"])
+    print(f"train_gnn_mitigation (60 epochs, batch 32, 160 train / 40 test "
+          f"entries): {train_s:.2f} s = {train_s / n_epochs:.3f} s per epoch;"
+          f" val loss {hist['val_loss'][0]:.5f} → {min(hist['val_loss']):.5f}"
+          f" (best); RMSE mitigated {out['rmse_mitigated']:.5f}, noisy "
+          f"{out['rmse_noisy']:.5f} [{card}]")
+    require(bool(np.isfinite(hist["train_loss"]).all()
+                 and np.isfinite(hist["val_loss"]).all()),
+            "the GNN's history is not finite")
+    require(min(hist["val_loss"]) < hist["val_loss"][0],
+            "the GNN's validation loss never fell below its first")
+
+    model = copy.deepcopy(out["model"])
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    args, yb = batch(np.arange(32), cuda)
+    step_ms = []
+    for _ in range(25):
+        secs, _ = sync_s(lambda: train_step(model, opt, args, yb))
+        step_ms.append(secs * 1e3)
+    busy = device_busy(lambda: train_step(model, opt, args, yb), 10)
+    tiled = {k: np.concatenate([v] * 6)[:1024] for k, v in arrays.items()}
+    predict(out["model"], None, gnn_inputs, tiled)
+    pred_s = min(sync_s(lambda: predict(out["model"], None, gnn_inputs,
+                                        tiled))[0] for _ in range(3))
+    print(f"train step at batch 32 (synchronized): median "
+          f"{statistics.median(step_ms[5:]):.2f} ms (of 20 after 5 warm-up; "
+          f"range {min(step_ms[5:]):.2f}-{max(step_ms[5:]):.2f}); predict at "
+          f"batch 256: {1024 / pred_s:.0f} graphs/s (1024 graphs, host in, "
+          f"host out, best of 3) [{card}]")
+    print(f"train step, torch.profiler over 10 steps: {busy} [{card}]")
+
+    te = out["test_index"][:6]
+    circs = [Circuit.from_dict(entries[i].circuit) for i in te]
+    obs = [decode_observable(entries[i].observable[0], 4) for i in te]
+    pad_n, pad_e = out["pad_nodes"], out["pad_edges"]
+    ngem_est = ngem(NoisyEstimator, out["model"], dev, skip_transpile=True,
+                    pad_nodes=pad_n, pad_edges=pad_e, device=cuda)(
+        dev, device=cuda)
+    noisy_est = NoisyEstimator(dev, device=cuda)
+    noisy_est.run(circs, obs).result()
+    ngem_s = min(sync_s(lambda: ngem_est.run(circs, obs).result())[0]
+                 for _ in range(3))
+    plain_s = min(sync_s(lambda: noisy_est.run(circs, obs).result())[0]
+                  for _ in range(3))
+    res = ngem_est.run(circs, obs).result()
+    rows = [ExpValueEntry(circuit_to_graph_data_json(c, props, True, True),
+                          encode_pauli_sum_op(o), 0.0,
+                          [m["original_value"]], c.depth()).to_arrays(
+        pad_n, pad_e) for c, o, m in zip(circs, obs, res.metadata)]
+    data = {k: np.stack([r[k] for r in rows]) for k in rows[0] if k != "y"}
+    want = predict(out["model"], None, gnn_inputs, data)[:, 0]
+    dataset_noisy = np.array([entries[i].noisy_exp_values[0] for i in te])
+    orig = np.array([m["original_value"] for m in res.metadata])
+    err = float(np.abs(res.values - want).max())
+    print(f"ngem(NoisyEstimator) on 6 test circuits: vs predict on the "
+          f"processor's graphs max|Δ|={err:.3e}; its noisy values vs the "
+          f"dataset's {np.abs(orig - dataset_noisy).max():.3e}")
+    print(f"ngem(NoisyEstimator).run on 6 circuits: {ngem_s * 1e3:.1f} ms "
+          f"= {ngem_s / 6 * 1e3:.2f} ms a value; the NoisyEstimator alone "
+          f"{plain_s * 1e3:.1f} ms (best of 3, host clock) [{card}]")
+    require(err <= 1e-5, f"ngem disagrees with predict: {err}")
+    launches = read_launches()
+    require(not any(launches.values()), f"a kernel ran: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"phase 16 wall time {time.perf_counter() - t0:.1f} s; peak device "
+          f"memory {peak:.1f} MiB (torch.cuda.max_memory_allocated) [{card}]")
+
+
 def main():
     require(os.path.isdir(os.path.join(ROOT, "mlqem_tpu_torch")),
             f"no mlqem_tpu_torch package beside {__file__}")
@@ -1453,6 +1769,9 @@ def main():
     torch.cuda.empty_cache()
     J0, rho0 = density_phases(card, cuda, device_model)
     estimator_phase(card, cuda, device_model, J0, rho0)
+    torch.cuda.empty_cache()
+    learning_flat_phase(card, cuda)
+    learning_gnn_phase(card, cuda)
 
     k1 = {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
           "plain_ms": p_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],

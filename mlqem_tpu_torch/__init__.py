@@ -6,9 +6,10 @@ as hand-written CUDA kernels for Hopper: the kicked-Ising evolution
 (``csrc/frame_evolve.cu``), one Trotter step (``csrc/fused_step.cu``) and
 the Walsh–Hadamard transform over device-memory planes (``csrc/wht.cu``),
 the last two on the light-cone engine's path; the exact density-matrix
-engines, the Estimator primitives and digital ZNE are plain PyTorch. It
-mirrors the JAX package's module paths and imports neither JAX nor
-``mlqem_tpu``.
+engines, the Estimator primitives, digital ZNE and the learning stack
+(datasets, the paper's GNN, the MLP/linear/forest regressors, the trainer
+and the ``learning``/``ngem`` Estimators) are plain PyTorch. It mirrors
+the JAX package's module paths and imports neither JAX nor ``mlqem_tpu``.
 
 Quick start::
 
@@ -34,17 +35,36 @@ Quick start::
     qc = Circuit(2).h(0).cx(0, 1)
     noisy = NoisyEstimator(dev, device="cuda").run(
         qc, PauliSum("ZZ")).result().values
+
+    out = train_gnn_mitigation(dev, device="cuda")   # the paper's GNN
+    NgemNoisy = ngem(NoisyEstimator, out["model"], dev, device="cuda",
+                     pad_nodes=out["pad_nodes"], pad_edges=out["pad_edges"])
+    mitigated = NgemNoisy(dev, device="cuda").run(qc, PauliSum("ZZ"))
 """
 
 from .circuits.circuit import Circuit, stack_circuits, tensorize
 from .circuits.observables import PauliSum
+from .data.generators import ExpValueEntry, generate_exp_val_dataset
+from .data.loaders import ExpValDataset
 from .device.model import DeviceModel
 from .device.noise import NoiseModel
 from .device.registry import configurable_device, get_device
+from .exceptions import MLQEMException
+from .metrics import Problem, Trial, improvement_factor, rmse
+from .mitigation.learning import (EmptyProcessor, ModelProcessor,
+                                  TorchModelProcessor, ZNEProcessor, learning)
+from .mitigation.ngem import GNNProcessor, ngem
 from .mitigation.twirling import sample_twirled_circuits, twirl_circuit
 from .mitigation.zne import (LinearExtrapolator, PolynomialExtrapolator,
                              RichardsonExtrapolator, ZNEEstimator,
                              ZNEStrategy, zne)
+from .models.forest import RandomForestRegressor
+from .models.gnn import (ExpValCircuitGraphModel, ExpValCircuitGraphModel2,
+                         ExpValCircuitGraphModel3, ExpValCircuitGraphModel4,
+                         NgemEnsembleModel)
+from .models.linear import LinearRegression
+from .models.mlp import MLP1, MLP2, MLP3
+from .models.train import predict, train_gnn, train_mlp, train_model
 from .ops.kicked_ising import KickedIsingEngine
 from .ops.lightcone import LightconeIsing
 from .parallel.datagen import IsingLabelPipeline, make_ising_template
@@ -52,13 +72,23 @@ from .primitives.estimator import (BaseEstimator, CountsBackend,
                                    EstimatorResult, IdealEstimator, Job,
                                    NoisyEstimator)
 from .primitives.trajectory_estimator import TrajectoryEstimator
+from .workflows.gnn_training import tomography_sweep, train_gnn_mitigation
 
 __all__ = ["BaseEstimator", "Circuit", "CountsBackend", "DeviceModel",
-           "EstimatorResult", "IdealEstimator", "IsingLabelPipeline", "Job",
+           "EmptyProcessor", "EstimatorResult", "ExpValCircuitGraphModel",
+           "ExpValCircuitGraphModel2", "ExpValCircuitGraphModel3",
+           "ExpValCircuitGraphModel4", "ExpValDataset", "ExpValueEntry",
+           "GNNProcessor", "IdealEstimator", "IsingLabelPipeline", "Job",
            "KickedIsingEngine", "LightconeIsing", "LinearExtrapolator",
-           "NoiseModel", "NoisyEstimator", "PauliSum",
-           "PolynomialExtrapolator", "RichardsonExtrapolator",
-           "TrajectoryEstimator", "ZNEEstimator", "ZNEStrategy",
-           "configurable_device", "get_device", "make_ising_template",
-           "sample_twirled_circuits", "stack_circuits", "tensorize",
+           "LinearRegression", "MLP1", "MLP2", "MLP3", "MLQEMException",
+           "ModelProcessor", "NgemEnsembleModel", "NoiseModel",
+           "NoisyEstimator", "PauliSum", "PolynomialExtrapolator", "Problem",
+           "RandomForestRegressor", "RichardsonExtrapolator",
+           "TorchModelProcessor", "TrajectoryEstimator", "Trial",
+           "ZNEEstimator", "ZNEProcessor", "ZNEStrategy",
+           "configurable_device", "generate_exp_val_dataset", "get_device",
+           "improvement_factor", "learning", "make_ising_template", "ngem",
+           "predict", "rmse", "sample_twirled_circuits", "stack_circuits",
+           "tensorize", "tomography_sweep", "train_gnn",
+           "train_gnn_mitigation", "train_mlp", "train_model",
            "twirl_circuit", "zne"]

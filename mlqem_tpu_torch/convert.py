@@ -6,7 +6,7 @@ the JAX side produced.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -14,6 +14,8 @@ import torch
 from .circuits.circuit import CircuitTensor
 from .circuits.parameters import CircuitTemplate, Parameter
 from .device.model import DeviceModel
+from .models.forest import RandomForestRegressor
+from .models.linear import LinearRegression
 from .ops.kicked_ising import EngineTables
 from .parallel.datagen import PipelineTables
 
@@ -121,3 +123,56 @@ def density_from_numpy(dm: np.ndarray, device: Union[str, torch.device]
         raise ValueError(f"dm must be [..., 2^n, 2^n] with n >= 2, got "
                          f"{dm.shape}")
     return torch.as_tensor(dm, device=device)
+
+
+def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a port model from the flax ``variables`` tree
+    (``{"params": …, "batch_stats": …}``, numpy leaves) of the same JAX
+    model: ``MLP1``-``MLP3``, ``ExpValCircuitGraphModel`` 1-4 and
+    ``NgemEnsembleModel``.
+
+    The port names its submodules as flax does (``backbone/pooling1/
+    fitness/w1``, ``MLP3_0/BatchNorm_0``, ``cheb1/Dense_2``, …), so each
+    leaf maps by its path: a ``Dense`` ``kernel`` [in, out] becomes
+    ``weight`` [out, in]; ``bias``, and ``BatchNorm``'s ``scale`` and
+    ``mean``/``var`` statistics, keep their names.
+    """
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path):
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                walk(val, path + [key])
+                continue
+            arr = np.array(val, np.float32)
+            if key == "kernel":
+                key, arr = "weight", np.ascontiguousarray(arr.T)
+            out[".".join(path + [key])] = torch.as_tensor(arr)
+
+    for collection in ("params", "batch_stats"):
+        walk(variables.get(collection, {}), [])
+    return out
+
+
+def forest_from_jax(stacked: Sequence[np.ndarray], depth: int,
+                    single_output: bool,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> RandomForestRegressor:
+    """A fitted port forest from a fitted JAX ``RandomForestRegressor``:
+    its ``_stacked`` arrays (feature, threshold, left, right, value), its
+    ``_depth`` and its ``_single_output``."""
+    rf = RandomForestRegressor(n_estimators=len(np.asarray(stacked[0])),
+                               device=device)
+    rf._single_output = bool(single_output)
+    return rf.set_stacked(*[np.asarray(a) for a in stacked], depth)
+
+
+def linear_from_jax(coef: np.ndarray, intercept,
+                    device: Union[str, torch.device] = "cuda"
+                    ) -> LinearRegression:
+    """A fitted port ``LinearRegression`` from a JAX one's ``coef_`` and
+    ``intercept_``."""
+    lr = LinearRegression(device=device)
+    lr.coef_ = np.asarray(coef)
+    lr.intercept_ = np.asarray(intercept)
+    return lr

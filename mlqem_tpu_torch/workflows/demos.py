@@ -5,8 +5,8 @@ runs so far.
 precomputed Pauli-propagation values, such as the K=131072 audit values
 that ship in ``docs/demos/results/audit_values_tpu.npz``. Recomputing
 those values needs ``PauliPropagatorIsing`` (ROADMAP item 17), and the
-demo1 pipeline itself (``demo1_zne_mimic_100q``) needs the random forests
-of ``models/forest.py`` (slice 4); both wait.
+demo1 pipeline itself (``demo1_zne_mimic_100q``) is ported with the rest
+of the workflows (ROADMAP item 18); both wait.
 """
 from __future__ import annotations
 

@@ -518,3 +518,94 @@ def test_density_engine_card_matches_cpu(fuse, pair4, cuda_device):
                              keys, table, fuse=fuse, pair4=pair4)
     want = run_density_static(ct, torch.as_tensor(params), keys, table)
     assert (got.cpu() - want).abs().max().item() <= 1e-6
+
+
+# -- the learning stack (plain torch on the card; no kernel of its own) -------
+def _gnn_batch(device, n=8, N=12, F=22, seed=0):
+    from mlqem_tpu_torch.models.train import gnn_inputs
+
+    rng = np.random.default_rng(seed)
+    nv = rng.integers(4, N + 1, size=n)
+    nm = np.arange(N)[None, :] < nv[:, None]
+    ei = np.zeros((n, 2, 2 * N), np.int32)
+    em = np.zeros((n, 2 * N), bool)
+    for b, k in enumerate(nv):
+        ei[b, :, :2 * k - 1] = [list(range(k - 1)) + list(range(k)),
+                                list(range(1, k)) + list(range(k))]
+        em[b, :2 * k - 1] = True
+    data = {"x": rng.normal(size=(n, N, F)) * nm[..., None],
+            "edge_index": ei, "edge_mask": em, "node_mask": nm,
+            "noisy": rng.uniform(-1, 1, size=(n, 1)),
+            "observable": rng.normal(size=(n, 17)),
+            "circuit_depth": rng.uniform(1, 9, size=n)}
+    batch = {k: torch.as_tensor(v.astype(np.float32) if v.dtype == np.float64
+                                else v, device=device)
+             for k, v in data.items()}
+    y = torch.as_tensor(rng.uniform(-1, 1, size=(n, 1)).astype(np.float32),
+                        device=device)
+    return gnn_inputs(batch), y
+
+
+def test_gnn_forward_and_adam_step_card_match_cpu(cuda_device):
+    """The paper's GNN (hidden 15, heads 5/3): eval forward on the card vs
+    the CPU ≤ 1e-5; one Adam step with dropout off: gradients ≤ 1e-5,
+    running statistics and every parameter element whose gradient is at
+    least 1e-6 ≤ 1e-5, the rest within Adam's step bound (2·lr)."""
+    import copy
+
+    from mlqem_tpu_torch.models.gnn import ExpValCircuitGraphModel3
+    from mlqem_tpu_torch.models.mlp import Dropout, init_params
+    from mlqem_tpu_torch.models.train import train_step
+
+    cpu = ExpValCircuitGraphModel3(15, 1, num_node_features=22)
+    init_params(cpu, torch.Generator().manual_seed(0))
+    for m in cpu.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    card = copy.deepcopy(cpu).to(cuda_device)
+    (args_c, y_c), (args_g, y_g) = (_gnn_batch("cpu"),
+                                    _gnn_batch(cuda_device))
+    with torch.no_grad():
+        err = (card.eval()(*args_g).cpu() - cpu.eval()(*args_c)).abs().max()
+    assert err.item() <= 1e-5
+    for model, args, y in ((cpu, args_c, y_c), (card, args_g, y_g)):
+        train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3),
+                   args, y)
+    for (k, p), q in zip(cpu.named_parameters(), card.parameters()):
+        g = q.grad.cpu()
+        assert (g - p.grad).abs().max().item() <= 1e-5, k
+        d = (q.detach().cpu() - p.detach()).abs()
+        tight = torch.maximum(g.abs(), p.grad.abs()) >= 1e-6
+        assert d[tight].max().item() <= 1e-5 if tight.any() else True, k
+        assert d.max().item() <= 2e-3, k
+    for (k, b), c in zip(cpu.named_buffers(), card.buffers()):
+        assert (c.cpu() - b).abs().max().item() <= 1e-5, k
+
+
+def test_forest_and_learning_card_match_cpu(cuda_device):
+    """The forest's predict on the card equals the same forest on the CPU
+    (≤ 1e-6), and learning(NoisyEstimator) with it as ModelProcessor equals
+    its predict on the processor's features."""
+    from mlqem_tpu_torch import (Circuit, NoisyEstimator, PauliSum,
+                                 RandomForestRegressor, get_device, learning)
+    from mlqem_tpu_torch.data.encoders import encode_data, encode_pauli_sum_op
+    from mlqem_tpu_torch.mitigation.learning import ModelProcessor
+
+    rng = np.random.default_rng(0)
+    dev = get_device("fake_lima")
+    X = rng.uniform(-1, 1, size=(64, 72)).astype(np.float32)
+    y = np.tanh(X[:, 54] + X[:, 3]).astype(np.float32)
+    rf = RandomForestRegressor(20, random_state=0, device=cuda_device)
+    rf.fit(X, y)
+    rf_cpu = RandomForestRegressor(20, device="cpu").set_stacked(
+        *[t.cpu().numpy() for t in rf._stacked], rf._depth)
+    rf_cpu._single_output = True
+    assert np.abs(rf.predict(X) - rf_cpu.predict(X)).max() <= 1e-6
+    qc = Circuit(4).h(0).cx(0, 1).rx(0.4, 2).cx(2, 3)
+    res = learning(NoisyEstimator, ModelProcessor(rf, dev, skip_transpile=True)
+                   )(dev, device=cuda_device).run(qc, PauliSum("ZIXI")
+                                                  ).result()
+    Xq, _ = encode_data([qc], dev.properties(), [[0.0]],
+                        [[res.metadata[0]["original_value"]]], 1,
+                        meas_bases=encode_pauli_sum_op("ZIXI"))
+    assert abs(res.values[0] - rf_cpu.predict(Xq)[0]) <= 1e-6

@@ -58,7 +58,16 @@ def test_exports():
                  "PolynomialExtrapolator", "RichardsonExtrapolator",
                  "ZNEEstimator", "ZNEStrategy", "zne", "twirl_circuit",
                  "sample_twirled_circuits", "stack_circuits", "tensorize",
-                 "PauliSum"):
+                 "PauliSum", "ExpValueEntry", "generate_exp_val_dataset",
+                 "ExpValDataset", "MLQEMException", "RandomForestRegressor",
+                 "LinearRegression", "MLP1", "MLP2", "MLP3",
+                 "ExpValCircuitGraphModel", "ExpValCircuitGraphModel2",
+                 "ExpValCircuitGraphModel3", "ExpValCircuitGraphModel4",
+                 "NgemEnsembleModel", "train_model", "train_gnn",
+                 "train_mlp", "predict", "learning", "ngem",
+                 "ModelProcessor", "TorchModelProcessor", "ZNEProcessor",
+                 "EmptyProcessor", "GNNProcessor", "train_gnn_mitigation",
+                 "tomography_sweep", "improvement_factor", "rmse"):
         assert hasattr(mlqem_tpu_torch, name)
     assert set(mlqem_tpu_torch.__all__) <= set(dir(mlqem_tpu_torch))
     # the state carriers from the JAX package
@@ -66,7 +75,8 @@ def test_exports():
     for name in ("device_from_jax_dict", "engine_tables_from_numpy",
                  "circuit_tensor_from_numpy", "template_from_numpy",
                  "pipeline_tables_from_numpy", "noise_table_from_numpy",
-                 "density_from_numpy"):
+                 "density_from_numpy", "state_dict_from_flax",
+                 "forest_from_jax", "linear_from_jax"):
         assert callable(getattr(convert, name))
 
 
