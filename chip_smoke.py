@@ -79,7 +79,25 @@ Phases, each of which exits non-zero on failure:
     ``ngem(NoisyEstimator)`` against ``predict`` (≤ 1e-5); the dataset
     time, train-step ms and its device busy share (``torch.profiler``),
     s per epoch, predict graphs/s, RMSEs, peak memory.
-    No kernel runs in phases 13-16.
+    No kernel runs in phases 13-16;
+17. ``KickedIsingEngine`` above K1's width: at nq 14 through K3 and at nq
+    20 through K4 (a step at a time), each against the plain path on the
+    same draws (``shots=None``, ≤ 1e-5) with its launch counts; then
+    ``zne_sweep_ising`` at its defaults (BASELINE config 4: nq 20, 4
+    steps, 16 J values, 64 trajectories, 10,000 shots, noise factors
+    (1, 3)) through K4, its ideal labels for 4 J values against a
+    complex128 statevector (≤ 1e-5); seconds, peak memory, launches, RMSEs;
+18. the datasets and the model zoo (BASELINE configs 1-3): every dataset
+    family's labels on the card against the CPU (``shots=None``, ≤ 1e-5);
+    ``demo2_ising_4q`` at its defaults; ``random_circuit_dataset`` on
+    ``configurable_device(10, seed=0)`` with ``model_comparison`` (OLS, RF;
+    MLP1 and the GNN at cut epoch counts); ``train_gnn_mbl`` at its
+    defaults but a cut epoch count; dataset seconds, s per epoch, RMSEs.
+    No kernel runs in phase 18;
+19. ``demo1_zne_mimic_100q`` (BASELINE config 5) at 100 qubits, 10 steps,
+    w=21 through K4, with cut circuit and realization counts (printed): its
+    ideal rows against ``LightconeIsing.ideal_stepwise`` (≤ 1e-6), the J00
+    row against cos(s·π/2) (≤ 1e-5); seconds, peak memory, RMSEs.
 
 Every kernel's record holds its bound: the larger of the bytes it must move
 over 3.35 TB/s and the f32 operations it must do over 67 TFLOP/s (the
@@ -122,6 +140,16 @@ K4_TOL = 2e-6                         # relative to max|want| per plane
 DM_BATCH, DM_CAP_BATCH = 512, 2048
 DM_CHECK, DM_NP_CHECK = 8, 2          # engine cross-checks; numpy circuits
 EST_TRAJ = 4096                       # TrajectoryEstimator's realizations
+# phases 17-19: the workflows of BASELINE.json's five configurations
+ZNE_NQ, ZNE_J, ZNE_TRAJ = 20, 16, 64   # zne_sweep_ising's defaults
+WIDE_J, WIDE_TRAJ = 4, 16              # phase 17's card-vs-plain batches
+RC_CIRCUITS, RC_DEPTH = 200, 5         # random_circuit_dataset, 10 qubits
+MC_MLP_EPOCHS, MC_GNN_EPOCHS = 50, 40  # model_comparison's 150 / 400, cut
+MBL_EPOCHS = 30                        # train_gnn_mbl's 200, cut
+D1_STEPS = 10                          # demo1's depth: w = 21, K4
+D1_CIRCUITS, D1_TRAIN = 4, 2           # demo1's 50 / 10 a step, cut
+D1_TWIRLS, D1_TWIRLS_AMP = 128, 32     # realizations: the artifact's 1024 /
+D1_SHOTS = round(50000 / D1_TWIRLS)    # 256 cut; its 50,000 shots split
 # phase 3's K1 cases: (nq, rows, random start)
 K1_CASES = [(6, 4099, False), (8, 4099, False), (8, 16384, False),
             (10, 4099, False), (10, 16384, False), (1, 1001, True),
@@ -308,29 +336,29 @@ def plan_flops(plan, nq):
 
 def exact_states(J, nq, steps, dt, h=1.0):
     """Independent check: the Trotter circuit's states by complex128
-    statevector simulation, gate by gate (RX(2h·dt) on every qubit, then
-    RZZ(−2J·dt) on the even and then the odd bonds): [len(J), 2^nq]."""
+    statevector simulation (RX(2h·dt) on every qubit, gate by gate, then
+    RZZ(−2J·dt) on every bond, as one diagonal): [len(J), 2^nq]."""
     import numpy as np
 
     dim = 2 ** nq
     bits = (np.arange(dim)[:, None] >> np.arange(nq)[None, :]) & 1
     z = 1.0 - 2.0 * bits                              # Z_q eigenvalues
     c, s = np.cos(h * dt), np.sin(h * dt)             # RX(θ), θ/2 = h·dt
-    bonds = ([(q, q + 1) for q in range(0, nq - 1, 2)]
-             + [(q, q + 1) for q in range(1, nq - 1, 2)])
+    # the RZZ gates are diagonal and commute: one phase per step, from the
+    # sum of z_a·z_b over the bonds
+    zz = sum(z[:, q] * z[:, q + 1] for q in range(nq - 1))
     out = []
     for jv in J:
         psi = np.zeros(dim, np.complex128)
         psi[0] = 1.0
+        zz_phase = np.exp(-0.5j * (-2.0 * float(jv) * dt) * zz)
         for _ in range(steps):
             for q in range(nq):
                 v = psi.reshape(dim // 2 ** (q + 1), 2, 2 ** q)
                 a, b = v[:, 0, :].copy(), v[:, 1, :].copy()
                 v[:, 0, :] = c * a - 1j * s * b
                 v[:, 1, :] = -1j * s * a + c * b
-            for qa, qb in bonds:
-                theta = -2.0 * float(jv) * dt
-                psi = psi * np.exp(-0.5j * theta * z[:, qa] * z[:, qb])
+            psi = psi * zz_phase
         out.append(psi)
     return np.stack(out)
 
@@ -1599,6 +1627,234 @@ def learning_gnn_phase(card, cuda):
           f"memory {peak:.1f} MiB (torch.cuda.max_memory_allocated) [{card}]")
 
 
+def kicked_wide_phase(card, cuda):
+    """Phase 17: KickedIsingEngine above K1's width (K3 at nq 14, K4 at nq
+    20) against the plain path, and zne_sweep_ising at its defaults."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import (KickedIsingEngine, configurable_device,
+                                 zne_sweep_ising)
+
+    t0 = time.perf_counter()
+    steps = 4
+    for nq, kernel, per_step in ((14, "fused_trotter_step", 1),
+                                 (ZNE_NQ, "wht_planes", 2)):
+        dev = configurable_device(nq, seed=0)
+        J = np.random.default_rng(nq).uniform(0.05, 0.6, size=WIDE_J
+                                              ).astype(np.float32)
+        out, counts = {}, {}
+        for use_kernel in (None, False):
+            eng = KickedIsingEngine(dev, nq=nq, steps=steps, dt=DT,
+                                    n_traj=WIDE_TRAJ, shots=None,
+                                    device=cuda, use_kernel=use_kernel)
+            reset_launches()
+            out[use_kernel] = eng.generate(J, seed=5)
+            torch.cuda.synchronize()
+            counts[use_kernel] = read_launches()
+            del eng
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(out[None], out[False]))
+        want = {k: 0 for k in counts[None]}
+        want[kernel] = 2 * steps * per_step     # noisy and ideal arms
+        print(f"KickedIsingEngine nq={nq} ({WIDE_J} circuits x {WIDE_TRAJ} "
+              f"trajectories, {steps} steps, shots=None): card path vs plain "
+              f"path on the same draws max|Δ|={err:.3e}; launches "
+              f"{counts[None]} (plain path {counts[False]})")
+        require(err <= TOL, f"nq={nq}: card path disagrees: {err}")
+        require(counts[None] == want, f"nq={nq}: expected {want}")
+        require(not any(counts[False].values()),
+                f"nq={nq}: the plain path launched {counts[False]}")
+        torch.cuda.empty_cache()
+
+    dev = configurable_device(ZNE_NQ, seed=0)
+    J_values = np.linspace(0.05, 0.6, ZNE_J).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    secs, sweep = sync_s(lambda: zne_sweep_ising(
+        dev, nq=ZNE_NQ, steps=4, J_values=J_values, n_traj=ZNE_TRAJ,
+        shots=SHOTS, device=cuda))
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"zne_sweep_ising (nq {ZNE_NQ}, 4 steps, {ZNE_J} J values, "
+          f"{ZNE_TRAJ} trajectories, {SHOTS} shots, nf (1, 3)): {secs:.2f} s;"
+          f" peak {peak:.2f} GiB; launches {counts}; RMSE noisy "
+          f"{sweep['rmse_noisy']:.5f}, ZNE {sweep['rmse_zne']:.5f} [{card}]")
+    want = {k: 0 for k in counts}
+    want["wht_planes"] = 2 * 2 * 4 * 2        # engines x arms x steps x 2
+    require(counts == want, f"zne sweep: expected launches {want}")
+    for k in ("ideal", "noisy", "zne"):
+        require(sweep[k].shape == (ZNE_J, ZNE_NQ)
+                and bool(np.isfinite(sweep[k]).all()),
+                f"zne sweep {k}: shape {sweep[k].shape} or not finite")
+    pick = np.linspace(0, ZNE_J - 1, 4).astype(int)
+    with ThreadPoolExecutor(4) as pool:
+        exact = np.concatenate(list(pool.map(
+            lambda j: exact_ideal_z(J_values[j:j + 1], ZNE_NQ, 4, DT),
+            pick)))
+    err = float(np.abs(sweep["ideal"][pick] - exact).max())
+    print(f"zne sweep ideal labels vs complex128 statevector (J "
+          f"{J_values[pick].round(4).tolist()}): max|Δ|={err:.3e}")
+    require(err <= TOL, f"zne sweep ideal labels wrong: {err}")
+    require(sweep["rmse_noisy"] > 1e-3, "noise had no effect")
+    # the stages of one of the sweep's engine batches (nf = 1)
+    eng = KickedIsingEngine(dev, nq=ZNE_NQ, steps=4, dt=DT, n_traj=ZNE_TRAJ,
+                            shots=SHOTS, device=cuda)
+    Jt = torch.as_tensor(J_values, device=cuda)
+    split = stage_split(lambda gen, mark: eng.run(Jt, gen, mark=mark), cuda)
+    print(f"zne sweep, one engine batch ({ZNE_J * ZNE_TRAJ} rows x 2^"
+          f"{ZNE_NQ}), stages (median of 3, synchronized): (b) frame pass "
+          f"{split['frame']:.1f} ms, (c) evolution {split['evolve']:.1f} ms,"
+          f" (d) readout + <Z> + flip + shots {split['readout']:.1f} ms, "
+          f"(c') ideal arm {split['ideal']:.1f} ms [{card}]")
+    del eng
+    print(f"phase 17 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def workflow_phase(card, cuda):
+    """Phase 18: the dataset families card vs CPU, demo2_ising_4q,
+    random_circuit_dataset + model_comparison, train_gnn_mbl."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import (configurable_device, demo2_ising_4q,
+                                 get_device, ising_dataset, mbl_dataset,
+                                 model_comparison, random_circuit_dataset,
+                                 tiling_dataset, train_gnn_mbl)
+
+    lima = get_device("fake_lima")
+    dev10 = configurable_device(10, seed=0)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    families = {
+        "ising (init prefix, lowered, routed)": lambda d: ising_dataset(
+            lima, num_circuits=6, steps_range=(1, 6), shots=None,
+            init_prefix=True, lower=True, route=True, seed=3, device=d),
+        "mbl (bond 1-2 cut)": lambda d: mbl_dataset(
+            lima, num_circuits=6, shots=None, broken_connections=[(1, 2)],
+            seed=2, device=d),
+        "tiling (3 in 5)": lambda d: tiling_dataset(
+            lima, 3, 5, num_circuits=6, shots=None, seed=5, device=d),
+        "random (10 qubits)": lambda d: random_circuit_dataset(
+            dev10, 10, RC_DEPTH, num_circuits=6, shots=None, seed=6,
+            device=d),
+    }
+    for name, build in families.items():
+        card_ds, cpu_ds = build(cuda), build("cpu")
+        err = max(float(np.abs(card_ds.ideal - cpu_ds.ideal).max()),
+                  float(np.abs(card_ds.noisy - cpu_ds.noisy).max()))
+        print(f"{name} labels, 6 circuits, shots=None: card vs CPU "
+              f"max|Δ|={err:.3e}; mean |noisy - ideal| "
+              f"{float(np.abs(card_ds.noisy - card_ds.ideal).mean()):.4f}")
+        require(err <= TOL, f"{name} labels: card vs CPU {err}")
+        require([c.to_dict() for c in card_ds.circuits]
+                == [c.to_dict() for c in cpu_ds.circuits],
+                f"{name}: the circuits differ")
+
+    secs, d2 = sync_s(lambda: demo2_ising_4q(lima, device=cuda))
+    print(f"demo2_ising_4q (fake_lima, 10 steps, 120 training circuits, "
+          f"10,000 shots, RF 300): {secs:.2f} s; RMSE noisy "
+          f"{d2['rmse_noisy']:.5f}, mitigated {d2['rmse_mitigated']:.5f}; "
+          f"L2 per step noisy {np.round(d2['l2_per_step_noisy'], 4).tolist()}"
+          f" [{card}]")
+    require(np.isfinite([d2["rmse_noisy"], d2["rmse_mitigated"]]).all()
+            and len(d2["steps"]) == 11, "demo2's output")
+
+    ds_s, ds = sync_s(lambda: random_circuit_dataset(
+        dev10, 10, RC_DEPTH, num_circuits=RC_CIRCUITS, device=cuda))
+    mc_s, table = sync_s(lambda: model_comparison(
+        ds, dev10, mlp_epochs=MC_MLP_EPOCHS, gnn_epochs=MC_GNN_EPOCHS,
+        device=cuda))
+    print(f"random_circuit_dataset(configurable_device(10), depth <= "
+          f"{RC_DEPTH}, {RC_CIRCUITS} circuits, 10,000 shots): {ds_s:.2f} s; "
+          f"model_comparison (MLP1 {MC_MLP_EPOCHS} of 150 epochs, GNN "
+          f"{MC_GNN_EPOCHS} of 400: cut) {mc_s:.2f} s; RMSE noisy "
+          f"{table['ols']['rmse_noisy']:.5f}; mitigated "
+          + ", ".join(f"{k} {v['rmse_mitigated']:.5f}"
+                      for k, v in table.items()) + f" [{card}]")
+    for k, v in table.items():
+        require(np.isfinite([v["rmse_noisy"], v["rmse_mitigated"]]).all(),
+                f"model_comparison {k} is not finite")
+
+    data_s, _ = sync_s(lambda: mbl_dataset(lima, num_qubits=4,
+                                           num_circuits=600, shots=None,
+                                           seed=0, device=cuda))
+    secs, mbl = sync_s(lambda: train_gnn_mbl(lima, num_epochs=MBL_EPOCHS,
+                                             device=cuda))
+    hist = mbl["history"]
+    print(f"train_gnn_mbl (fake_lima, 4 qubits, 600 MBL circuits, "
+          f"{MBL_EPOCHS} of 200 epochs: cut): dataset {data_s:.2f} s; "
+          f"{secs:.2f} s in all = ~{(secs - data_s) / MBL_EPOCHS:.3f} s per "
+          f"epoch; val loss {hist['val_loss'][0]:.5f} -> "
+          f"{min(hist['val_loss']):.5f}; RMSE noisy {mbl['rmse_noisy']:.5f},"
+          f" mitigated {mbl['rmse_mitigated']:.5f} [{card}]")
+    require(bool(np.isfinite(hist["train_loss"]).all())
+            and min(hist["val_loss"]) < hist["val_loss"][0],
+            "train_gnn_mbl's validation loss never fell")
+    launches = read_launches()
+    require(not any(launches.values()), f"a kernel ran: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 18 wall time {time.perf_counter() - t0:.1f} s; peak "
+          f"{peak:.2f} GiB [{card}]")
+
+
+def demo1_phase(card, cuda):
+    """Phase 19: demo1_zne_mimic_100q at 100 qubits, 10 steps, w=21 through
+    K4, with cut circuit and realization counts."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import (LightconeIsing, configurable_device,
+                                 demo1_zne_mimic_100q)
+    from mlqem_tpu_torch.workflows.demos import DEMO1_CALIBRATED_SCALE
+
+    dev = configurable_device(LC_NQ, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    secs, out = sync_s(lambda: demo1_zne_mimic_100q(
+        dev, nq=LC_NQ, num_steps=D1_STEPS, num_circ_per_step=D1_CIRCUITS,
+        train_per_step=D1_TRAIN, num_twirls=D1_TWIRLS,
+        num_twirls_amp=D1_TWIRLS_AMP, shots=D1_SHOTS,
+        noise_scale=DEMO1_CALIBRATED_SCALE, device=cuda))
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    Q = len(LC_QUBITS)
+    print(f"demo1_zne_mimic_100q ({LC_NQ} qubits, {D1_STEPS} steps, w="
+          f"{2 * D1_STEPS + 1}, scale {DEMO1_CALIBRATED_SCALE}; cut: "
+          f"{D1_CIRCUITS} circuits a step (of 50), {D1_TRAIN} train (of 10), "
+          f"{D1_TWIRLS}/{D1_TWIRLS_AMP} realizations (of 1024/256), "
+          f"{D1_SHOTS} shots each): {secs:.2f} s; peak {peak:.2f} GiB; "
+          f"launches {counts} [{card}]")
+    # 5 windows x steps x 2 K4 calls x (nf1 + ideal, nf3; J00 alike)
+    want = {k: 0 for k in counts}
+    want["wht_planes"] = Q * D1_STEPS * 2 * 6
+    require(counts == want, f"demo1: expected launches {want}")
+    print("demo1 RMSE vs ZNE: noisy {:.5f}, mimic {:.5f}; vs ideal: noisy "
+          "{:.5f}, ZNE {:.5f}, mimic {:.5f}".format(
+              out["rmse_noisy_vs_zne"], out["rmse_mimic_vs_zne"],
+              out["rmse_noisy"], out["rmse_zne"], out["rmse_mimic"]))
+    rows = out["rows"]
+    require(len(rows) == D1_STEPS * D1_CIRCUITS, "demo1 rows")
+    for k in ("noisy", "zne", "ideal"):
+        require(bool(np.isfinite(np.stack([r[k] for r in rows])).all()),
+                f"demo1 {k} rows are not finite")
+    ideal = np.stack([r["ideal"] for r in rows]).reshape(
+        D1_STEPS, D1_CIRCUITS, Q).transpose(1, 0, 2)
+    J = np.asarray([r["J"] for r in rows[:D1_CIRCUITS]], np.float32)
+    lc = LightconeIsing(dev, nq=LC_NQ, steps=D1_STEPS, device=cuda, dt=LC_DT,
+                        h=LC_H, n_traj=1, shots=None, noise=False,
+                        readout=False)
+    want_ideal = lc.ideal_stepwise(J[1:], qubits=LC_QUBITS)
+    err = float(np.abs(ideal[1:] - want_ideal).max())
+    cliff = np.cos(np.arange(1, D1_STEPS + 1) * np.pi / 2.0)[:, None]
+    err0 = float(np.abs(ideal[0] - cliff).max())
+    print(f"demo1 ideal rows vs LightconeIsing.ideal_stepwise: max|Δ|="
+          f"{err:.3e}; J00 row vs cos(s·π/2): max|Δ|={err0:.3e}")
+    require(J[0] == 0.0 and err <= 1e-6, f"demo1 ideal rows: {err}")
+    require(err0 <= TOL, f"demo1 J00 row: {err0}")
+
+
 def main():
     require(os.path.isdir(os.path.join(ROOT, "mlqem_tpu_torch")),
             f"no mlqem_tpu_torch package beside {__file__}")
@@ -1772,6 +2028,15 @@ def main():
     torch.cuda.empty_cache()
     learning_flat_phase(card, cuda)
     learning_gnn_phase(card, cuda)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kicked_wide_phase(card, cuda)
+    torch.cuda.empty_cache()
+    workflow_phase(card, cuda)
+    torch.cuda.empty_cache()
+    demo1_phase(card, cuda)
+    torch.cuda.synchronize()
+    print(f"phases 17-19 wall time {time.perf_counter() - t0:.1f} s [{card}]")
 
     k1 = {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
           "plain_ms": p_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],

@@ -8,8 +8,11 @@ the Walsh–Hadamard transform over device-memory planes (``csrc/wht.cu``),
 the last two on the light-cone engine's path; the exact density-matrix
 engines, the Estimator primitives, digital ZNE and the learning stack
 (datasets, the paper's GNN, the MLP/linear/forest regressors, the trainer
-and the ``learning``/``ngem`` Estimators) are plain PyTorch. It mirrors
-the JAX package's module paths and imports neither JAX nor ``mlqem_tpu``.
+and the ``learning``/``ngem`` Estimators) are plain PyTorch, and so are the
+experiment workflows above them (the labelled datasets, the model zoo and
+ZNE mimicry, the 20-qubit ZNE sweep, demo1 and demo2). It mirrors the JAX
+package's module paths and imports neither JAX nor ``mlqem_tpu``. Every
+entry point runs on ``device="cuda"`` unless the caller asks for the CPU.
 
 Quick start::
 
@@ -40,6 +43,15 @@ Quick start::
     NgemNoisy = ngem(NoisyEstimator, out["model"], dev, device="cuda",
                      pad_nodes=out["pad_nodes"], pad_edges=out["pad_edges"])
     mitigated = NgemNoisy(dev, device="cuda").run(qc, PauliSum("ZZ"))
+
+    ds = random_circuit_dataset(configurable_device(10, seed=0), 10, 6,
+                                num_circuits=200, device="cuda")
+    table = model_comparison(ds, configurable_device(10, seed=0),
+                             device="cuda")        # OLS / RF / MLP1 / GNN
+    sweep = zne_sweep_ising(configurable_device(20, seed=0), nq=20,
+                            device="cuda")         # K4 at 20 qubits
+    demo1 = demo1_zne_mimic_100q(device="cuda", num_twirls=1024,
+                                 num_twirls_amp=256, shots=49, t_chunk=128)
 """
 
 from .circuits.circuit import Circuit, stack_circuits, tensorize
@@ -47,7 +59,7 @@ from .circuits.observables import PauliSum
 from .data.generators import ExpValueEntry, generate_exp_val_dataset
 from .data.loaders import ExpValDataset
 from .device.model import DeviceModel
-from .device.noise import NoiseModel
+from .device.noise import NoiseModel, add_coherent_cx_noise
 from .device.registry import configurable_device, get_device
 from .exceptions import MLQEMException
 from .metrics import Problem, Trial, improvement_factor, rmse
@@ -72,23 +84,44 @@ from .primitives.estimator import (BaseEstimator, CountsBackend,
                                    EstimatorResult, IdealEstimator, Job,
                                    NoisyEstimator)
 from .primitives.trajectory_estimator import TrajectoryEstimator
-from .workflows.gnn_training import tomography_sweep, train_gnn_mitigation
+from .workflows.datasets import (LabeledDataset, dataset_imbalance,
+                                 ising_dataset, ising_step_sweep,
+                                 mbl_dataset, noise_setting,
+                                 random_circuit_dataset, tiling_dataset)
+from .workflows.demos import (demo1_zne_mimic_100q, demo2_ising_4q,
+                              lightcone_crosscheck)
+from .workflows.generalization import generalization_study
+from .workflows.gnn_training import (tomography_sweep, train_gnn_mbl,
+                                     train_gnn_mitigation)
+from .workflows.mitigate import (encode_dataset, graph_encode_dataset,
+                                 model_comparison, train_gnn_on_dataset,
+                                 train_mitigation_model, train_zne_mimic,
+                                 zne_batch)
+from .workflows.zne_scale import zne_sweep_ising
 
 __all__ = ["BaseEstimator", "Circuit", "CountsBackend", "DeviceModel",
            "EmptyProcessor", "EstimatorResult", "ExpValCircuitGraphModel",
            "ExpValCircuitGraphModel2", "ExpValCircuitGraphModel3",
            "ExpValCircuitGraphModel4", "ExpValDataset", "ExpValueEntry",
            "GNNProcessor", "IdealEstimator", "IsingLabelPipeline", "Job",
-           "KickedIsingEngine", "LightconeIsing", "LinearExtrapolator",
-           "LinearRegression", "MLP1", "MLP2", "MLP3", "MLQEMException",
-           "ModelProcessor", "NgemEnsembleModel", "NoiseModel",
-           "NoisyEstimator", "PauliSum", "PolynomialExtrapolator", "Problem",
-           "RandomForestRegressor", "RichardsonExtrapolator",
-           "TorchModelProcessor", "TrajectoryEstimator", "Trial",
-           "ZNEEstimator", "ZNEProcessor", "ZNEStrategy",
-           "configurable_device", "generate_exp_val_dataset", "get_device",
-           "improvement_factor", "learning", "make_ising_template", "ngem",
-           "predict", "rmse", "sample_twirled_circuits", "stack_circuits",
-           "tensorize", "tomography_sweep", "train_gnn",
-           "train_gnn_mitigation", "train_mlp", "train_model",
-           "twirl_circuit", "zne"]
+           "KickedIsingEngine", "LabeledDataset", "LightconeIsing",
+           "LinearExtrapolator", "LinearRegression", "MLP1", "MLP2", "MLP3",
+           "MLQEMException", "ModelProcessor", "NgemEnsembleModel",
+           "NoiseModel", "NoisyEstimator", "PauliSum",
+           "PolynomialExtrapolator", "Problem", "RandomForestRegressor",
+           "RichardsonExtrapolator", "TorchModelProcessor",
+           "TrajectoryEstimator", "Trial", "ZNEEstimator", "ZNEProcessor",
+           "ZNEStrategy", "add_coherent_cx_noise", "configurable_device",
+           "dataset_imbalance", "demo1_zne_mimic_100q", "demo2_ising_4q",
+           "encode_dataset", "generalization_study",
+           "generate_exp_val_dataset", "get_device", "graph_encode_dataset",
+           "improvement_factor", "ising_dataset", "ising_step_sweep",
+           "learning", "lightcone_crosscheck", "make_ising_template",
+           "mbl_dataset", "model_comparison", "ngem", "noise_setting",
+           "predict", "random_circuit_dataset", "rmse",
+           "sample_twirled_circuits", "stack_circuits", "tensorize",
+           "tiling_dataset", "tomography_sweep", "train_gnn", "train_gnn_mbl",
+           "train_gnn_mitigation", "train_gnn_on_dataset",
+           "train_mitigation_model", "train_mlp", "train_model",
+           "train_zne_mimic", "twirl_circuit", "zne", "zne_batch",
+           "zne_sweep_ising"]

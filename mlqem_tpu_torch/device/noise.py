@@ -2,7 +2,10 @@
 
 Host-side equivalent of qiskit-aer's ``NoiseModel`` as used by the
 reference: ``NoiseModel.from_backend`` (thermal relaxation + depolarizing
-per gate, readout error on measure) → :meth:`NoiseModel.from_device`.
+per gate, readout error on measure) → :meth:`NoiseModel.from_device`;
+``RemoveReadoutErrors`` → :meth:`NoiseModel.without_readout`;
+``AddNoise.add_coherent_noise`` (coherent RX(π+θ) CX over-rotation ⊗
+depolarizing ⊗ thermal relaxation) → :func:`add_coherent_cx_noise`.
 A noise model compiles into a per-op 16×16 superoperator table
 (:func:`compile_noise_table`) and per-qubit readout matrices
 (:func:`readout_matrices`).
@@ -15,7 +18,8 @@ import numpy as np
 
 from ..circuits.circuit import CircuitTensor
 from ..circuits.gates import GATE_NAMES, GATE_NUM_QUBITS
-from ..ops.channels import (Channel, depol_param_for_target_error,
+from ..ops.channels import (Channel, coherent_overrotation_cx,
+                            depol_param_for_target_error,
                             depolarizing_channel, readout_confusion,
                             thermal_relaxation_channel)
 from .model import DeviceModel
@@ -71,6 +75,33 @@ class NoiseModel:
             ch = self.default_channels.get(gate)
         return ch
 
+    def has_noise(self) -> bool:
+        return bool(self.local_channels or self.default_channels
+                    or self.readout is not None)
+
+    # -- reference-parity transforms ----------------------------------------
+    def without_readout(self) -> "NoiseModel":
+        """``RemoveReadoutErrors`` parity: strip measurement errors."""
+        out = self.copy()
+        out.readout = None
+        return out
+
+    def without_gate(self, gate: str) -> "NoiseModel":
+        """Delete all channels attached to one gate (e.g. 'cx')."""
+        out = self.copy()
+        out.local_channels = {k: v for k, v in out.local_channels.items()
+                              if k[0] != gate}
+        out.default_channels = {k: v for k, v in out.default_channels.items()
+                                if k != gate}
+        return out
+
+    def copy(self) -> "NoiseModel":
+        out = NoiseModel(self.num_qubits)
+        out.local_channels = dict(self.local_channels)
+        out.default_channels = dict(self.default_channels)
+        out.readout = None if self.readout is None else self.readout.copy()
+        return out
+
     # -- Aer-style construction from calibration ------------------------------
     @classmethod
     def from_device(cls, device: DeviceModel,
@@ -123,6 +154,51 @@ class NoiseModel:
                 if p > 0:
                     nm.set_readout_error(q, readout_confusion(p))
         return nm
+
+
+def add_coherent_cx_noise(device: DeviceModel,
+                          theta: float,
+                          uniform: bool = False,
+                          add_depolarization: bool = True,
+                          add_coherent: bool = True,
+                          seed: Optional[int] = None,
+                          base: Optional[NoiseModel] = None,
+                          scale: float = 1.0) -> NoiseModel:
+    """``AddNoise.add_coherent_noise`` parity (``noise_utils.py:69-144``).
+
+    Strips the device's CX errors and replaces them per coupling direction
+    with coherent RX(π+θ) over-rotation (uniform θ, or per-edge θ ~ U[0, θ]
+    from ``np.random.default_rng(seed)``) optionally composed with
+    depolarizing + thermal relaxation.
+
+    ``scale`` multiplies the incoherent parts (depolarizing strength,
+    relaxation duration) and the base model's channels; scale the coherent
+    angle by passing a scaled ``theta``.
+    """
+    nm = (base or NoiseModel.from_device(device, scale=scale)
+          ).without_gate("cx")
+    rng = np.random.default_rng(seed)
+    pairs = [p for p in device.coupling_map]
+    thetas = ([theta] * len(pairs) if uniform
+              else rng.uniform(0, theta, size=len(pairs)).tolist())
+    for (a, b), th in zip(pairs, thetas):
+        chan = None
+        if add_coherent:
+            chan = coherent_overrotation_cx(th)
+        if add_depolarization:
+            props = device.gate_props("cx", (a, b))
+            relax0 = thermal_relaxation_channel(
+                device.t1(a), device.t2(a), props.gate_length * scale)
+            relax1 = thermal_relaxation_channel(
+                device.t1(b), device.t2(b), props.gate_length * scale)
+            dep = depolarizing_channel(
+                min(props.gate_error * scale, 1.0 - 4.0 ** -2), 2)
+            extra = dep.compose(relax0.expand_to_2q(0)).compose(
+                relax1.expand_to_2q(1))
+            chan = extra if chan is None else chan.compose(extra)
+        if chan is not None:
+            nm.add_quantum_error(chan, "cx", (a, b))
+    return nm
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,11 @@ anticommutes with it). So a trajectory is the same circuit with ±1 angle
 signs per rotation, plus a final X-flip mask folded into ⟨Z⟩. The state
 evolution is then a Walsh–Hadamard transform around a per-trajectory RX
 phase, and a per-trajectory ZZ phase: the fused kernel of
-:mod:`.kernels.evolve`.
+:mod:`.kernels.evolve` (K1) up to its width of 13 qubits, and above it
+:func:`kicked_steps`, one step at a time through K3
+(:mod:`.kernels.fused_step`) at 14 qubits or K4 (:mod:`.kernels.wht`) and
+the phases in torch from 15; the light-cone engine evolves its windows
+through the same :func:`kicked_steps`.
 
 The stages of :meth:`KickedIsingEngine.run`:
 (b) the frame pass: draw the noise Paulis (:meth:`~KickedIsingEngine.
@@ -32,12 +36,20 @@ from ..device.model import DeviceModel
 from ..device.noise import NoiseModel
 from . import sampling
 from .density import apply_readout_confusion
-from .kernels.evolve import evolve_fused, evolve_fused_reference
+from .kernels import evolve as k_evolve
+from .kernels import fused_step as k_step
+from .kernels import wht as k_wht
 from .kernels.wht import check_ieee_matmul, hadamard_dense, wht
 from .trajectory import compose_pauli_channel, pauli_channel_probs
 
-__all__ = ["EngineTables", "KickedIsingEngine", "propagate_frames", "wht",
-           "wht_mm"]
+__all__ = ["EngineTables", "KickedIsingEngine", "kicked_steps",
+           "propagate_frames", "wht", "wht_mm"]
+
+Mark = Callable[[str], None]
+
+
+def _no_mark(stage: str) -> None:
+    pass
 
 
 def _bonds(nq: int) -> Tuple[List[Tuple[int, int]], List[Tuple[int, int]]]:
@@ -146,6 +158,87 @@ def propagate_frames(draws: torch.Tensor, bonds: Sequence[Tuple[int, int]],
     return kick, bond, x_after
 
 
+def _rotate_(re: torch.Tensor, im: torch.Tensor, c: torch.Tensor,
+             s: torch.Tensor):
+    """(re + i·im) ← (re + i·im)·(c + i·s), in place."""
+    t = re * s
+    re.mul_(c).addcmul_(im, s, value=-1.0)
+    im.mul_(c).add_(t)
+
+
+def kicked_steps(re: torch.Tensor, im: torch.Tensor,
+                 kick: Optional[torch.Tensor], bond: Optional[torch.Tensor],
+                 theta_j_rows: torch.Tensor, bit_pm: torch.Tensor,
+                 bond_par: torch.Tensor, theta_h: float, steps: int,
+                 use_kernel: bool = True,
+                 after_step: Optional[Callable[[int, torch.Tensor,
+                                                torch.Tensor], None]] = None,
+                 mark: Mark = _no_mark
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evolve re/im [rows, 2^w] through ``steps`` kicked-Ising Trotter
+    steps, one step at a time; returns the evolved (re, im).
+
+    ``kick`` [rows, steps, w] and ``bond`` [rows, steps, nb] are the ±1
+    angle signs, or None for all +1 (an ideal arm). The tables are in the
+    JAX layout: bit_pm [2^w, w], bond_par [2^w, nb]. Up to K3's width a
+    step is :func:`~.kernels.fused_step.fused_trotter_step`; above it
+    :func:`~.kernels.wht.wht_planes` (K4), the RX phase, K4, the ZZ phase,
+    as the JAX package computes them. ``use_kernel=False`` takes the plain
+    versions; otherwise the wrappers pick kernel or plain version by the
+    tensors' device (a width no kernel takes raises on a CUDA tensor).
+    ``after_step(s, re, im)`` is called after each step; ``mark`` with a
+    stage's name as each has been enqueued ("step" for K3, "wht" and
+    "phase" above K3's width).
+    """
+    w, nb = bit_pm.shape[1], bond_par.shape[1]
+    rows = theta_j_rows.shape[0]
+    after_step = after_step or (lambda s, re_, im_: None)
+    if w <= k_step.MAX_NQ:
+        step = (k_step.fused_trotter_step if use_kernel
+                else k_step.fused_trotter_step_reference)
+        if kick is None:
+            kick = torch.ones((rows, steps, w), device=re.device)
+            bond = torch.ones((rows, steps, nb), device=re.device)
+        theta_col = theta_j_rows.reshape(rows, 1).contiguous()
+        for s in range(steps):
+            re, im = step(re, im, kick[:, s].contiguous(),
+                          bond[:, s].contiguous(), theta_col, bit_pm,
+                          bond_par, theta_h)
+            mark("step")
+            after_step(s, re, im)
+        return re, im
+    planes = k_wht.wht_planes if use_kernel else k_wht.wht_planes_reference
+    zz_scale = theta_j_rows[:, None] * -0.5
+    uniform = kick is None
+    if uniform:   # the phases are the same [dim] vectors every step
+        expo = (theta_h / 2.0) * bit_pm.sum(dim=1)
+        kick_cs = torch.cos(expo), torch.sin(expo)
+        bond_unit = bond_par.sum(dim=1)
+    for s in range(steps):
+        re, im = planes(re, im, w)
+        mark("wht")
+        if uniform:
+            _rotate_(re, im, *kick_cs)
+        else:
+            expo = (kick[:, s] @ bit_pm.T).mul_(theta_h / 2.0)
+            c = torch.cos(expo)
+            _rotate_(re, im, c, expo.sin_())
+            del expo, c
+        mark("phase")
+        re, im = planes(re, im, w)
+        mark("wht")
+        if uniform:
+            expo = zz_scale * bond_unit
+        else:
+            expo = (bond[:, s] @ bond_par.T).mul_(zz_scale)
+        c = torch.cos(expo)
+        _rotate_(re, im, c, expo.sin_())
+        del expo, c
+        mark("phase")
+        after_step(s, re, im)
+    return re, im
+
+
 @dataclasses.dataclass
 class EngineTables:
     """The engine's noise tables, on the engine's device.
@@ -163,10 +256,12 @@ class EngineTables:
 class KickedIsingEngine:
     """Noisy + ideal per-qubit-Z label generator for the TFIM family.
 
-    ``device`` is the torch device everything runs on. ``use_kernel``:
-    None runs the CUDA kernel on a CUDA device and the plain PyTorch
-    evolution on the CPU; True asks for the kernel (CUDA only); False runs
-    the plain version anywhere.
+    ``device`` is the torch device everything runs on. The evolution is K1
+    (:func:`~.kernels.evolve.evolve_fused`) up to nq = 13, and
+    :func:`kicked_steps` above it: K3 at nq = 14, K4 and the phases in
+    torch from 15. ``use_kernel``: None runs the CUDA kernels on a CUDA
+    device and their plain PyTorch versions on the CPU; True asks for the
+    kernels (CUDA only); False runs the plain versions anywhere.
     """
 
     device_model: DeviceModel
@@ -193,8 +288,9 @@ class KickedIsingEngine:
         if self.use_kernel and self.device.type != "cuda":
             raise ValueError("use_kernel=True needs a CUDA device, got "
                              f"{self.device}")
-        self._use_kernel = (self.device.type == "cuda"
-                            if self.use_kernel is None else self.use_kernel)
+        # the wrappers run the kernels on CUDA tensors and the plain
+        # versions on CPU ones; False asks for the plain versions anywhere
+        self._use_kernel = self.use_kernel is not False
         nm = self.noise_model or NoiseModel.from_device(self.device_model)
         # of the gates this family uses (rx, rz, cx) only CX may carry noise
         touched = ({g for g, _ in nm.local_channels}
@@ -228,8 +324,15 @@ class KickedIsingEngine:
             return torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                    device=self.device)
 
-        self._bit_pm_t = dev(bit_pm.T)
-        self._bond_par_t = dev(bond_par.T)
+        # K1 takes the tables transposed, [nq, dim] and [nb, dim];
+        # kicked_steps (K3, K4) takes them as built, [dim, nq], [dim, nb]
+        self._fused = self.nq <= k_evolve.MAX_NQ
+        if self._fused:
+            self._bit_pm_t = dev(bit_pm.T)
+            self._bond_par_t = dev(bond_par.T)
+        else:
+            self._bit_pm = dev(bit_pm)
+            self._bond_par = dev(bond_par)
         self._neg_bit_pm = dev(-bit_pm)     # ⟨Z_q⟩ = probs @ (−bit_pm)
 
     # ------------------------------------------------------------------
@@ -264,21 +367,35 @@ class KickedIsingEngine:
     # (c) evolution
     # ------------------------------------------------------------------
     def evolve(self, theta_h: float, theta_j_rows: torch.Tensor,
-               kick: torch.Tensor, bond: torch.Tensor) -> torch.Tensor:
+               kick: Optional[torch.Tensor] = None,
+               bond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Evolve |0…0⟩ per row; returns probabilities [rows, 2^nq].
 
-        The probabilities are computed in place in the evolved re plane.
+        ``kick`` [rows, steps·nq] and ``bond`` [rows, steps·nb] are the ±1
+        signs, or None for all +1 (the ideal arm). The probabilities are
+        computed in place in the evolved re plane.
         """
-        rows = theta_j_rows.shape[0]
+        rows, S, nb = theta_j_rows.shape[0], self.steps, len(self.bonds)
         re = torch.zeros((rows, 2 ** self.nq), dtype=torch.float32,
                          device=self.device)
         re[:, 0] = 1.0
         im = torch.zeros_like(re)
-        fn = evolve_fused if self._use_kernel else evolve_fused_reference
-        re, im = fn(re, im, kick, bond,
-                    theta_j_rows.reshape(rows, 1).contiguous(),
-                    self._bit_pm_t, self._bond_par_t, theta_h, self.steps,
-                    self.nq, len(self.bonds))
+        if self._fused:
+            if kick is None:
+                kick = torch.ones((rows, S * self.nq), device=self.device)
+                bond = torch.ones((rows, S * nb), device=self.device)
+            fn = (k_evolve.evolve_fused if self._use_kernel
+                  else k_evolve.evolve_fused_reference)
+            re, im = fn(re, im, kick, bond,
+                        theta_j_rows.reshape(rows, 1).contiguous(),
+                        self._bit_pm_t, self._bond_par_t, theta_h, S,
+                        self.nq, nb)
+        else:
+            re, im = kicked_steps(
+                re, im, None if kick is None else kick.reshape(rows, S, -1),
+                None if bond is None else bond.reshape(rows, S, -1),
+                theta_j_rows, self._bit_pm, self._bond_par, theta_h, S,
+                use_kernel=self._use_kernel)
         return re.mul_(re).addcmul_(im, im)
 
     # ------------------------------------------------------------------
@@ -312,7 +429,7 @@ class KickedIsingEngine:
         caller can time the stages.
         """
         mark = mark or (lambda stage: None)
-        B, S, nq, nb = J.shape[0], self.steps, self.nq, len(self.bonds)
+        B = J.shape[0]
         theta_h = 2.0 * self.h * self.dt
         theta_j = (-2.0 * self.dt) * J.to(torch.float32)
         draws = self.sample_draws(B * self.n_traj, generator)
@@ -328,9 +445,7 @@ class KickedIsingEngine:
         mark("readout")
         # ideal labels: the same evolution with every sign +1, one row per
         # circuit
-        ones_k = torch.ones((B, S * nq), device=self.device)
-        ones_b = torch.ones((B, S * nb), device=self.device)
-        probs = self.evolve(theta_h, theta_j, ones_k, ones_b)
+        probs = self.evolve(theta_h, theta_j)
         check_ieee_matmul(probs)
         ideal = probs @ self._neg_bit_pm
         mark("ideal")

@@ -16,16 +16,14 @@ per-trajectory ±1 angle signs from the Pauli-frame pass plus a per-step
 measurement flip.
 
 :meth:`LightconeIsing.evolve_stepwise` evolves a window one step at a time
-and reads ⟨Z_obs⟩ after each. Up to K3's width (14 qubits) a step is one
-:func:`~.kernels.fused_step.fused_trotter_step`; above it a step is
-:func:`~.kernels.wht.wht_planes` (K4), the RX phase, K4, the ZZ phase, as
-the JAX package computes them. The wrappers pick kernel or plain version by
-the tensors' device.
+through :func:`~.kicked_ising.kicked_steps` (K3 up to 14 qubits, K4 and the
+phases in torch above) and reads ⟨Z_obs⟩ after each. The wrappers pick
+kernel or plain version by the tensors' device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,16 +31,8 @@ import torch
 from ..device.model import DeviceModel
 from ..device.noise import NoiseModel
 from . import sampling
-from .kernels import fused_step as k_step
-from .kernels import wht as k_wht
-from .kicked_ising import propagate_frames
+from .kicked_ising import Mark, _no_mark, kicked_steps, propagate_frames
 from .trajectory import compose_pauli_channel, pauli_channel_probs
-
-Mark = Callable[[str], None]
-
-
-def _no_mark(stage: str) -> None:
-    pass
 
 
 def cone_window(q: int, steps: int, nq: int) -> Tuple[int, int]:
@@ -62,14 +52,6 @@ def readout_affine(confusion: Optional[np.ndarray]) -> Tuple[float, float]:
     a = (C[0, 0] - C[1, 0] + C[1, 1] - C[0, 1]) / 2.0
     b = (C[0, 0] - C[1, 0] - C[1, 1] + C[0, 1]) / 2.0
     return float(a), float(b)
-
-
-def _rotate_(re: torch.Tensor, im: torch.Tensor, c: torch.Tensor,
-             s: torch.Tensor):
-    """(re + i·im) ← (re + i·im)·(c + i·s), in place."""
-    t = re * s
-    re.mul_(c).addcmul_(im, s, value=-1.0)
-    im.mul_(c).add_(t)
 
 
 def _z_obs(re: torch.Tensor, im: torch.Tensor, mz: torch.Tensor
@@ -123,12 +105,6 @@ class LightconeIsing:
         if self.use_kernel and self.device.type != "cuda":
             raise ValueError("use_kernel=True needs a CUDA device, got "
                              f"{self.device}")
-        if self.use_kernel is False:
-            self._step = k_step.fused_trotter_step_reference
-            self._wht = k_wht.wht_planes_reference
-        else:
-            self._step = k_step.fused_trotter_step
-            self._wht = k_wht.wht_planes
         nm = self.noise_model
         if nm is None and self.noise:
             nm = NoiseModel.from_device(self.device_model)
@@ -204,57 +180,23 @@ class LightconeIsing:
         "wht" and "phase" above K3's width, then "z").
         """
         w, obs, S = tw["w"], tw["obs"], self.steps
-        nb = len(tw["bonds"])
-        rows, dim = theta_j_rows.shape[0], 1 << w
-        theta_h = 2.0 * self.h * self.dt
+        rows = theta_j_rows.shape[0]
         bit_pm, bond_par = self.sign_tables(tw)
         mz = (-bit_pm[:, obs]).contiguous()
-        re = torch.zeros((rows, dim), dtype=torch.float32, device=self.device)
+        re = torch.zeros((rows, 1 << w), dtype=torch.float32,
+                         device=self.device)
         re[:, 0] = 1.0
         im = torch.zeros_like(re)
         z = torch.empty((S, rows), dtype=torch.float32, device=self.device)
-        uniform = kick is None
-        if w <= k_step.MAX_NQ:
-            if uniform:
-                kick = torch.ones((rows, S, w), device=self.device)
-                bond = torch.ones((rows, S, nb), device=self.device)
-            theta_col = theta_j_rows.reshape(rows, 1).contiguous()
-            for s in range(S):
-                re, im = self._step(re, im, kick[:, s].contiguous(),
-                                    bond[:, s].contiguous(), theta_col,
-                                    bit_pm, bond_par, theta_h)
-                mark("step")
-                z[s] = _z_obs(re, im, mz)
-                mark("z")
-            return z
-        zz_scale = theta_j_rows[:, None] * -0.5
-        if uniform:   # the phases are the same [dim] vectors every step
-            expo = (theta_h / 2.0) * bit_pm.sum(dim=1)
-            kick_cs = torch.cos(expo), torch.sin(expo)
-            bond_unit = bond_par.sum(dim=1)
-        for s in range(S):
-            re, im = self._wht(re, im, w)
-            mark("wht")
-            if uniform:
-                _rotate_(re, im, *kick_cs)
-            else:
-                expo = (kick[:, s] @ bit_pm.T).mul_(theta_h / 2.0)
-                c = torch.cos(expo)
-                _rotate_(re, im, c, expo.sin_())
-                del expo, c
-            mark("phase")
-            re, im = self._wht(re, im, w)
-            mark("wht")
-            if uniform:
-                expo = zz_scale * bond_unit
-            else:
-                expo = (bond[:, s] @ bond_par.T).mul_(zz_scale)
-            c = torch.cos(expo)
-            _rotate_(re, im, c, expo.sin_())
-            del expo, c
-            mark("phase")
-            z[s] = _z_obs(re, im, mz)
+
+        def read_z(s, re_, im_):
+            z[s] = _z_obs(re_, im_, mz)
             mark("z")
+
+        kicked_steps(re, im, kick, bond, theta_j_rows, bit_pm, bond_par,
+                     2.0 * self.h * self.dt, S,
+                     use_kernel=self.use_kernel is not False,
+                     after_step=read_z, mark=mark)
         return z
 
     # -- the arms ---------------------------------------------------------------

@@ -6,11 +6,9 @@ ExpValueEntry datasets → padded graph arrays → ExpValCircuitGraphModel3
 training (Adam + ReduceLROnPlateau, checkpointing) → RMSE eval → optional
 ``ngem()`` deployment behind the Estimator API.
 
-Plus the ``h18_tomography`` workflow: random measurement bases and the
-training-set-size sweep (2^4 … 2^11).
-
-``train_gnn_mbl`` needs ``workflows/datasets.py::mbl_dataset``, which the
-port does not have yet (ROADMAP item 18).
+Plus :func:`train_gnn_mbl`, the paper's GNN task on MBL circuits with
+per-qubit ⟨Z⟩ labels, and the ``h18_tomography`` workflow: random
+measurement bases and the training-set-size sweep (2^4 … 2^11).
 """
 from __future__ import annotations
 
@@ -28,6 +26,8 @@ from ..metrics import rmse
 from ..models.forest import RandomForestRegressor
 from ..models.gnn import ExpValCircuitGraphModel3
 from ..models.train import gnn_inputs, predict, train_gnn
+from .datasets import mbl_dataset
+from .mitigate import _split, graph_encode_dataset
 
 
 def train_gnn_mitigation(device_model: DeviceModel,
@@ -80,6 +80,51 @@ def train_gnn_mitigation(device_model: DeviceModel,
         "state_dict": state_dict,
         "pad_nodes": ds.max_nodes,
         "pad_edges": ds.max_edges,
+        "test_index": te,
+    }
+
+
+def train_gnn_mbl(device_model: DeviceModel,
+                  num_qubits: int = 4,
+                  num_circuits: int = 600,
+                  steps_range=(1, 4),
+                  hidden_channels: int = 15,
+                  dropout: float = 0.1,
+                  num_epochs: int = 200,
+                  learning_rate: float = 2e-3,
+                  test_fraction: float = 0.15,
+                  shots=None,
+                  seed: int = 0,
+                  checkpoint_path=None,
+                  device: Union[str, torch.device] = "cuda") -> Dict:
+    """The paper's GNN task: per-qubit ⟨Z⟩ mitigation on MBL circuits.
+
+    (The reference's best-GNN configuration, ``gnn.py:313-317`` — dropout
+    0.3 there assumes thousands of training circuits; 0.1 works at
+    hundreds.) The dataset's labels and the training run on ``device``.
+    """
+    ds = mbl_dataset(device_model, num_qubits=num_qubits,
+                     num_circuits=num_circuits, steps_range=steps_range,
+                     shots=shots, seed=seed, device=device)
+    data = graph_encode_dataset(ds, device_model, standardize=False)
+    y = ds.ideal.astype(np.float32)
+    te, tr = _split(len(ds), test_fraction, seed)
+
+    model = ExpValCircuitGraphModel3(
+        hidden_channels=hidden_channels, exp_value_size=num_qubits,
+        dropout=dropout, num_node_features=data["x"].shape[-1])
+    state_dict, history = train_gnn(
+        model, {**{k: v[tr] for k, v in data.items()}, "y": y[tr]},
+        num_epochs=num_epochs, batch_size=32, learning_rate=learning_rate,
+        seed=seed, checkpoint_path=checkpoint_path, device=device)
+    pred = predict(model, state_dict, gnn_inputs,
+                   {k: v[te] for k, v in data.items()})
+    return {
+        "rmse_noisy": float(rmse(ds.noisy[te], y[te])),
+        "rmse_mitigated": float(rmse(pred, y[te])),
+        "history": history,
+        "model": model,
+        "state_dict": state_dict,
         "test_index": te,
     }
 

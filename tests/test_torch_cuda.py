@@ -211,6 +211,34 @@ def test_engine_kernel_matches_plain_path(cuda_device):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("nq,kernel,per_step", [
+    (14, "fused_trotter_step", 1), (20, "wht_planes", 2)])
+def test_engine_above_k1_width_matches_plain_path(nq, kernel, per_step,
+                                                  cuda_device):
+    """Above K1's 13 qubits the engine runs K3 (nq 14) or K4 (nq 20) a
+    step at a time; it used to raise at its first batch."""
+    J = np.random.default_rng(2).uniform(0.05, 0.6, size=3)
+    counters = {"evolve_fused": kev.evolve_fused,
+                "fused_trotter_step": kfs.fused_trotter_step,
+                "wht_planes": kwht.wht_planes}
+    out, launches = [], []
+    for use_kernel in (True, False):
+        eng = KickedIsingEngine(configurable_device(nq, seed=0), nq=nq,
+                                steps=3, device=cuda_device, n_traj=4,
+                                shots=None, use_kernel=use_kernel)
+        before = {k: f.launches for k, f in counters.items()}
+        out.append(eng.generate(J, seed=3))
+        launches.append({k: f.launches - before[k]
+                         for k, f in counters.items()})
+    # the noisy arm and the ideal arm, 3 steps each
+    want = {k: 0 for k in counters}
+    want[kernel] = 2 * 3 * per_step
+    assert launches == [want, {k: 0 for k in counters}]
+    for got, ref in zip(*out):
+        assert got.shape == (3, nq)
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("nq,rows", [(1, 3), (2, 5), (5, 1000), (10, 4099),
                                      (13, 17)])
 def test_frame_kernel_matches_reference(nq, rows, cuda_device):

@@ -163,3 +163,73 @@ def test_engine_refuses_noise_on_rotations():
     with pytest.raises(ValueError, match="CX\\+readout noise only"):
         KickedIsingEngine(configurable_device(4), nq=4, steps=1,
                           device="cpu", noise_model=nm)
+
+
+@pytest.mark.parametrize("nq", [12, 14, 15])
+def test_engine_above_k1_width_matches_jax(nq, rng, monkeypatch):
+    """At 12 qubits the evolution is K1's plain version; at 14 it is
+    ``kicked_steps`` through K3's, at 15 through K4's and the torch phases
+    (the widths the card could not run before: K1 takes nq ≤ 13)."""
+    B, T, S = 2, 3, 2
+    J = rng.uniform(0.05, 0.6, size=B).astype(np.float32)
+    kw = dict(nq=nq, steps=S, dt=0.25, n_traj=T, shots=None)
+    jeng = JEngine(j_configurable(nq, seed=0), use_pallas=False, **kw)
+    eng = KickedIsingEngine(configurable_device(nq, seed=0), device="cpu",
+                            use_kernel=False, **kw)
+    draws = _draws(rng, S, B * T, nq - 1)
+    draws[rng.random(draws.shape) < 0.8] = 0
+    _share_draws(monkeypatch, draws)
+    j_ideal, j_noisy = jeng.generate(J, seed=0)
+    ideal, noisy = eng.generate(J, seed=0)
+    np.testing.assert_allclose(ideal, j_ideal, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(noisy, j_noisy, atol=1e-5, rtol=0)
+    assert np.abs(noisy - ideal).max() > 1e-3
+
+
+@pytest.mark.parametrize("nq, route", [(13, "evolve_fused"),
+                                       (14, "fused_trotter_step"),
+                                       (15, "wht_planes")])
+def test_engine_picks_the_kernel_for_its_width(nq, route, monkeypatch):
+    """The engine calls K1's wrapper up to 13 qubits, K3's at 14 and K4's
+    from 15 (on the CPU each wrapper runs its plain version, so the calls
+    are counted here in place of the card's launches); use_kernel=False
+    calls none of them."""
+    import mlqem_tpu_torch.ops.kernels.evolve as kev
+    import mlqem_tpu_torch.ops.kernels.fused_step as kfs
+    import mlqem_tpu_torch.ops.kernels.wht as kwht
+
+    calls = {}
+    for mod, name in ((kev, "evolve_fused"), (kfs, "fused_trotter_step"),
+                      (kwht, "wht_planes")):
+        def counted(*a, _fn=getattr(mod, name), _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a)
+        monkeypatch.setattr(mod, name, counted)
+    S = 2
+    kw = dict(nq=nq, steps=S, n_traj=2, shots=None, device="cpu")
+    J = np.array([0.3], np.float32)
+    want = {"evolve_fused": 2, "fused_trotter_step": 2 * S,
+            "wht_planes": 4 * S}[route]
+    got = KickedIsingEngine(configurable_device(nq, seed=0), **kw
+                            ).generate(J, seed=0)
+    assert calls == {route: want}
+    calls.clear()
+    plain = KickedIsingEngine(configurable_device(nq, seed=0),
+                              use_kernel=False, **kw).generate(J, seed=0)
+    assert calls == {}
+    for a, b in zip(got, plain):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+def test_zne_sweep_at_12_qubits():
+    """``zne_sweep_ising`` (the 20-qubit baseline's workflow) at 12 qubits,
+    as the JAX package's test runs it: extrapolation beats the noisy
+    values."""
+    from mlqem_tpu_torch import zne_sweep_ising
+
+    out = zne_sweep_ising(configurable_device(12, seed=0), nq=12, steps=2,
+                          J_values=np.linspace(0.1, 0.5, 4), n_traj=256,
+                          shots=None, seed=0, device="cpu")
+    assert out["zne"].shape == out["ideal"].shape == (4, 12)
+    assert set(out["measured"]) == {1, 3}
+    assert out["rmse_zne"] < out["rmse_noisy"]
