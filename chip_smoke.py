@@ -97,7 +97,31 @@ Phases, each of which exits non-zero on failure:
 19. ``demo1_zne_mimic_100q`` (BASELINE config 5) at 100 qubits, 10 steps,
     w=21 through K4, with cut circuit and realization counts (printed): its
     ideal rows against ``LightconeIsing.ideal_stepwise`` (≤ 1e-6), the J00
-    row against cos(s·π/2) (≤ 1e-5); seconds, peak memory, RMSEs.
+    row against cos(s·π/2) (≤ 1e-5); seconds, peak memory, RMSEs;
+20. the sparse Pauli-propagation engine (``PauliPropagatorIsing``, plain
+    torch, no kernel): (a) card vs CPU at nq 40 (two words a term), 3
+    steps, ideal/nf1/nf3, at a K that keeps every term (≤ 1e-6, nothing
+    discarded on either side) and at one that cuts (≤ 1e-5); (b) the
+    shipped K=131072 audit recomputed at its configuration (100 qubits, 10
+    steps, h = 0.5π): steps 1-6 within 1e-3 of ``audit_values_tpu.npz``,
+    steps 7-10 printed; ``truncation_convergence`` at K (16384, 65536,
+    131072), its per-step drifts beside ``truncation_audit_tpu.json``'s, the
+    top-pair drift ≤ 1e-3 through step 5; (c) ``lightcone_crosscheck(
+    reference=None, max_terms=131072)`` at phase 10's configuration: passes,
+    90 K3 launches, beside phase 10's differences; (d)
+    ``demo1_zne_mimic_100q(engine="pauli_prop")`` at demo1's physics with
+    phase 19's cut circuit counts: the J00 row against cos(s·π/2) (≤ 1e-5),
+    RMSEs;
+21. the stabilizer tableau and the workflows above it: (a)
+    ``scalability_sweep`` at its defaults (5-400 qubits, depths 1, 4, 7, 20
+    circuits each), labels on the card equal to those on the CPU,
+    circuits/s per width; (b) ``generate_rb_circuit`` at 2 and 3 qubits
+    composes to the identity (the statevector, ≤ 1e-5); (c)
+    ``single_ising_parity("incoherent", protocol="faithful")`` at full
+    dataset sizes with cut MLP/GNN epochs and no forest arm (printed): the
+    noisy RMSE within 10% of the published 0.172, every arm beside the
+    published one. Each phase 20-21 step prints its wall time and peak
+    device memory.
 
 Every kernel's record holds its bound: the larger of the bytes it must move
 over 3.35 TB/s and the f32 operations it must do over 67 TFLOP/s (the
@@ -150,6 +174,17 @@ D1_STEPS = 10                          # demo1's depth: w = 21, K4
 D1_CIRCUITS, D1_TRAIN = 4, 2           # demo1's 50 / 10 a step, cut
 D1_TWIRLS, D1_TWIRLS_AMP = 128, 32     # realizations: the artifact's 1024 /
 D1_SHOTS = round(50000 / D1_TWIRLS)    # 256 cut; its 50,000 shots split
+# phases 20-21: the Pauli-propagation and stabilizer engines
+PP_NQ, PP_STEPS = 40, 3                # phase 20a: two 32-bit words a term
+PP_QUBITS = (0, 31, 32, 39)            # each side of the word boundary
+PP_K_EXACT, PP_K_TRUNC = 4096, 128     # 368 live terms at most: 0 / some cut
+PP_TRUNC_TOL = 1e-5                    # card vs CPU where terms are cut
+AUDIT_KS = (16384, 65536, 131072)      # truncation_audit_tpu.json's K
+AUDIT_TOL = 1e-3                       # the cross-check's ideal_tol
+AUDIT_GATED = 6                        # steps held to the shipped values
+DRIFT_GATED = 5                        # steps whose top-pair drift is held
+PARITY_MLP_EPOCHS, PARITY_GNN_EPOCHS = 20, 10   # of 200 / 400, cut
+PARITY_ARMS = ("ols", "mlp", "gnn", "zne")      # the forest arm is cut
 # phase 3's K1 cases: (nq, rows, random start)
 K1_CASES = [(6, 4099, False), (8, 4099, False), (8, 16384, False),
             (10, 4099, False), (10, 16384, False), (1, 1001, True),
@@ -159,6 +194,10 @@ K1_CASES = [(6, 4099, False), (8, 4099, False), (8, 16384, False),
 # build of csrc/evolve.cu before its device code moved into kicked_regs.cuh
 K1_DIGEST = ("7b89b4bdcb5fe09b21c4dedb20e421f4"
              "7ea5b8a4e583659f72fc13803d4dee9f")
+
+
+# results a later phase prints beside its own (phase 10's cross-check)
+RESULTS = {}
 
 
 def fail(msg):
@@ -709,6 +748,7 @@ def lightcone_phases(card, cuda):
     require(counts["fused_trotter_step"] == 90 and counts["wht_planes"] == 0,
             f"expected 90 K3 and 0 K4 launches, got {counts}")
     k3["launches"] = counts["fused_trotter_step"]
+    RESULTS["crosscheck"] = xck
 
     # -- 11. demo1's configuration at w=21 -----------------------------------
     nm = NoiseModel.from_device(dev, scale=DEMO1_CALIBRATED_SCALE)
@@ -1855,6 +1895,218 @@ def demo1_phase(card, cuda):
     require(err0 <= TOL, f"demo1 J00 row: {err0}")
 
 
+def phase_begin():
+    """Synchronize, reset the peak-memory counter and start the clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def phase_end(name, t0, card):
+    import torch
+
+    torch.cuda.synchronize()
+    print(f"phase {name} wall time {time.perf_counter() - t0:.1f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB [{card}]")
+
+
+def pauli_prop_phase(card, cuda):
+    """Phase 20: the sparse Pauli-propagation engine: card vs CPU (20a),
+    the shipped K=131072 audit recomputed with its K-doubling audit (20b),
+    the light-cone cross-check on its own recomputed reference (20c) and
+    demo1 through the engine (20d)."""
+    import numpy as np
+
+    from mlqem_tpu_torch import (PauliPropagatorIsing, configurable_device,
+                                 demo1_zne_mimic_100q, lightcone_crosscheck,
+                                 truncation_convergence)
+    from mlqem_tpu_torch.workflows.demos import DEMO1_CALIBRATED_SCALE
+
+    arms = (("ideal", False, 1), ("nf1", True, 1), ("nf3", True, 3))
+
+    # -- 20a. the engine on the card vs the CPU ------------------------------
+    t0 = phase_begin()
+    dev40 = configurable_device(PP_NQ, seed=1)
+    J = np.array([0.05, 0.3, 0.55], np.float32)
+    for K in (PP_K_EXACT, PP_K_TRUNC):
+        for arm, noisy, nf in arms:
+            (v, e), (cv, ce) = (PauliPropagatorIsing(
+                dev40, nq=PP_NQ, steps=PP_STEPS, dt=LC_DT, h=LC_H,
+                max_terms=K, noise=noisy, device=d).generate_stepwise(
+                    J, nf, PP_QUBITS) for d in (cuda, "cpu"))
+            err = float(np.abs(v - cv).max())
+            derr = float(np.abs(e - ce).max())
+            print(f"PauliPropagatorIsing nq={PP_NQ} (qubits {PP_QUBITS}), "
+                  f"{PP_STEPS} steps, K={K}, {arm}: card vs CPU max|Δ| "
+                  f"values {err:.3e}, discarded weight {derr:.3e}; "
+                  f"discarded {float(e.max()):.4e} (CPU {float(ce.max()):.4e})")
+            if K == PP_K_EXACT:
+                require(float(e.max()) == float(ce.max()) == 0.0,
+                        f"20a: K={K} discarded terms")
+                require(err <= 1e-6, f"20a: card vs CPU {err} at K={K}")
+            else:
+                require(float(e.max()) > 0.0, f"20a: K={K} cut nothing")
+                require(max(err, derr) <= PP_TRUNC_TOL,
+                        f"20a: card vs CPU {err}, {derr} at K={K}")
+    phase_end("20a", t0, card)
+
+    # -- 20b. the shipped K=131072 audit, recomputed -------------------------
+    results = os.path.join(ROOT, "docs", "demos", "results")
+    audit = np.load(os.path.join(results, "audit_values_tpu.npz"))
+    with open(os.path.join(results, "truncation_audit_tpu.json")) as f:
+        shipped = json.load(f)
+    t0 = phase_begin()
+    dev = configurable_device(LC_NQ, seed=int(audit["device_seed"]))
+    Ja = audit["J_values"].astype(np.float32)
+    qa = [int(q) for q in audit["qubits"]]
+    phys = dict(nq=LC_NQ, dt=float(audit["dt"]), h=float(audit["h"]))
+    K = int(audit["K"])
+    require(K == AUDIT_KS[-1] and tuple(shipped["K_values"]) == AUDIT_KS,
+            "the shipped audit's K values changed")
+    for arm, noisy, nf in arms:
+        eng = PauliPropagatorIsing(dev, steps=LC_STEPS, max_terms=K,
+                                   noise=noisy, device=cuda, **phys)
+        secs, (v, e) = sync_s(lambda: eng.generate_stepwise(Ja, nf, qa))
+        diff = np.abs(v - audit[arm]).max(axis=(0, 2))
+        print(f"audit recomputed ({LC_NQ}q, {LC_STEPS} steps, K={K}), "
+              f"{arm}: {secs:.2f} s; max|Δ| vs audit_values_tpu.npz per step "
+              f"{[float(f'{x:.3e}') for x in diff]}; discarded weight at "
+              f"step 10 {float(e[:, -1].max()):.4e} [{card}]")
+        require(bool(np.isfinite(v).all()), f"20b {arm}: not finite")
+        require(float(diff[:AUDIT_GATED].max()) <= AUDIT_TOL,
+                f"20b {arm}: steps 1-{AUDIT_GATED} differ from the shipped "
+                f"values by {float(diff[:AUDIT_GATED].max())}")
+    secs, conv = sync_s(lambda: truncation_convergence(
+        dev, num_steps=LC_STEPS, J_values=tuple(Ja.tolist()), qubits=qa,
+        K_values=AUDIT_KS, noise_factors=(0, 1, 3), tol=AUDIT_TOL,
+        device=cuda, **phys))
+    print(f"truncation_convergence K={AUDIT_KS}: {secs:.2f} s; validated "
+          f"depth {conv['validated_depth']} (shipped "
+          f"{shipped['validated_depth']}) [{card}]")
+    for arm in ("ideal", "nf1", "nf3"):
+        top = conv["arms"][arm]["per_step_drift"][-1]
+        was = shipped["arms"][arm]["per_step_drift"][-1]
+        print(f"  {arm} top-pair drift per step "
+              f"{[float(f'{x:.3e}') for x in top]}; shipped "
+              f"{[float(f'{x:.3e}') for x in was]}")
+        require(max(top[:DRIFT_GATED]) <= AUDIT_TOL,
+                f"20b {arm}: top-pair drift {max(top[:DRIFT_GATED])} at "
+                f"steps 1-{DRIFT_GATED}")
+    phase_end("20b", t0, card)
+
+    # -- 20c. the cross-check on its own reference ---------------------------
+    t0 = phase_begin()
+    reset_launches()
+    secs, xck = sync_s(lambda: lightcone_crosscheck(
+        dev, steps=6, J_values=tuple(Ja.tolist()), qubits=qa, max_terms=K,
+        n_traj=XCK_TRAJ, reference=None, seed=1, device=cuda, **phys))
+    counts = read_launches()
+    ref = RESULTS["crosscheck"]
+    print(f"cross-check on its recomputed reference (K={K}): ideal max|Δ|="
+          f"{xck['ideal_max_diff']:.3e} (phase 10, shipped values: "
+          f"{ref['ideal_max_diff']:.3e}), noisy {xck['noisy_max_diff']} "
+          f"(phase 10: {ref['noisy_max_diff']}), passed={xck['passed']}; "
+          f"launches {counts}; {secs:.2f} s [{card}]")
+    require(xck["passed"] and xck["config"]["reference"] == "recomputed",
+            "20c: the cross-check failed on its recomputed reference")
+    require(counts["fused_trotter_step"] == 90 and counts["wht_planes"] == 0,
+            f"20c: expected 90 K3 and 0 K4 launches, got {counts}")
+    phase_end("20c", t0, card)
+
+    # -- 20d. demo1 through the Pauli-propagation engine ---------------------
+    t0 = phase_begin()
+    reset_launches()
+    secs, d1 = sync_s(lambda: demo1_zne_mimic_100q(
+        dev, nq=LC_NQ, num_steps=D1_STEPS, num_circ_per_step=D1_CIRCUITS,
+        train_per_step=D1_TRAIN, noise_scale=DEMO1_CALIBRATED_SCALE,
+        engine="pauli_prop", device=cuda))
+    counts = read_launches()
+    print(f"demo1_zne_mimic_100q(engine='pauli_prop') ({LC_NQ} qubits, "
+          f"{D1_STEPS} steps, max_terms 8192, 10,000 shots x 5 twirls; cut: "
+          f"{D1_CIRCUITS} circuits a step (of 50), {D1_TRAIN} train (of "
+          f"10)): {secs:.2f} s; max discarded weight "
+          f"{d1['max_truncation_discard']:.4e}; launches {counts} [{card}]")
+    print("demo1 (pauli_prop) RMSE vs ZNE: noisy {:.5f}, mimic {:.5f}; vs "
+          "ideal: noisy {:.5f}, ZNE {:.5f}, mimic {:.5f}".format(
+              d1["rmse_noisy_vs_zne"], d1["rmse_mimic_vs_zne"],
+              d1["rmse_noisy"], d1["rmse_zne"], d1["rmse_mimic"]))
+    rows = d1["rows"]
+    require(len(rows) == D1_STEPS * D1_CIRCUITS, "20d: demo1 rows")
+    for k in ("noisy", "zne", "ideal"):
+        require(bool(np.isfinite(np.stack([r[k] for r in rows])).all()),
+                f"20d: demo1 {k} rows are not finite")
+    j0 = sorted((r for r in rows if r["J"] == 0.0), key=lambda r: r["step"])
+    err0 = max(float(np.abs(r["ideal"] - np.cos(r["step"] * np.pi / 2)
+                            ).max()) for r in j0)
+    print(f"demo1 (pauli_prop) J00 row vs cos(s·π/2): max|Δ|={err0:.3e}")
+    require(len(j0) == D1_STEPS and err0 <= TOL, f"20d: J00 row {err0}")
+    phase_end("20d", t0, card)
+
+
+def stabilizer_phase(card, cuda):
+    """Phase 21: the stabilizer tableau and the workflows above it: the
+    Clifford scalability sweep card vs CPU (21a), multi-qubit RB (21b)
+    and the faithful single-Ising parity run (21c)."""
+    import numpy as np
+
+    from mlqem_tpu_torch import (PUBLISHED, scalability_sweep,
+                                 single_ising_parity, tensorize)
+    from mlqem_tpu_torch.data.generators import generate_rb_circuit
+    from mlqem_tpu_torch.ops.statevector import statevector
+
+    # -- 21a. the scalability sweep at its defaults --------------------------
+    t0 = phase_begin()
+    rows = scalability_sweep(device=cuda)
+    cpu_rows = scalability_sweep(device="cpu")
+    for r, c in zip(rows, cpu_rows):
+        print(f"scalability_sweep {r['n_qubits']} qubits, depth "
+              f"{r['depth']}, {r['circuits']} circuits: card "
+              f"{r['circuits_per_sec']:.1f} circuits/s (CPU "
+              f"{c['circuits_per_sec']:.1f}); mean |<Z_0>| "
+              f"{r['mean_abs_label']:.3f} [{card}]")
+        require(r["labels"] == c["labels"] and r["n_qubits"] == c["n_qubits"],
+                f"21a: card labels differ from the CPU's at "
+                f"{r['n_qubits']} qubits, depth {r['depth']}")
+    require(len(rows) == 18, f"21a: {len(rows)} rows")
+    phase_end("21a", t0, card)
+
+    # -- 21b. multi-qubit randomized benchmarking ----------------------------
+    t0 = phase_begin()
+    for nq, length, seed in ((2, 5, 0), (2, 20, 1), (3, 5, 2), (3, 20, 3)):
+        qc = generate_rb_circuit(nq, length, seed=seed)
+        amp0 = float(statevector(tensorize(qc), device=cuda)[0].abs())
+        print(f"generate_rb_circuit({nq}, {length}, seed={seed}): "
+              f"{len(qc.ops)} ops; |<0|U|0>| = {amp0:.7f}")
+        require(abs(amp0 - 1.0) <= TOL, f"21b: RB at {nq} qubits: {amp0}")
+    phase_end("21b", t0, card)
+
+    # -- 21c. the faithful single-Ising parity run ---------------------------
+    t0 = phase_begin()
+    secs, par = sync_s(lambda: single_ising_parity(
+        "incoherent", protocol="faithful", seed=0,
+        mlp_epochs=PARITY_MLP_EPOCHS, gnn_epochs=PARITY_GNN_EPOCHS,
+        arms=PARITY_ARMS, device=cuda))
+    pub = PUBLISHED["incoherent"]
+    print(f"single_ising_parity('incoherent', protocol='faithful', seed 0; "
+          f"{par['num_train']} train circuits, 30-step test sweep, 10,000 "
+          f"shots, ZNE with {par['num_twirls']} twirls, noise scale "
+          f"{par['noise_scale']}; cut: MLP {PARITY_MLP_EPOCHS} of 200 "
+          f"epochs, GNN {PARITY_GNN_EPOCHS} of 400 on "
+          f"{par['gnn_train_count']} circuits, the random-forest arm left "
+          f"out (4 host fits of RF(300) on 4500 rows)): {secs:.2f} s [{card}]")
+    for k, v in par["ours"].items():
+        print(f"  {k}: RMSE {v:.5f} (published {pub.get(k, '-')})")
+    noisy = par["ours"]["noisy"]
+    require(abs(noisy - pub["noisy"]) <= 0.1 * pub["noisy"],
+            f"21c: noisy RMSE {noisy} is not within 10% of {pub['noisy']}")
+    require(all(np.isfinite(v) for v in par["ours"].values()),
+            "21c: an arm is not finite")
+    phase_end("21c", t0, card)
+
+
 def main():
     require(os.path.isdir(os.path.join(ROOT, "mlqem_tpu_torch")),
             f"no mlqem_tpu_torch package beside {__file__}")
@@ -2037,6 +2289,13 @@ def main():
     demo1_phase(card, cuda)
     torch.cuda.synchronize()
     print(f"phases 17-19 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pauli_prop_phase(card, cuda)
+    torch.cuda.empty_cache()
+    stabilizer_phase(card, cuda)
+    torch.cuda.synchronize()
+    print(f"phases 20-21 wall time {time.perf_counter() - t0:.1f} s [{card}]")
 
     k1 = {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
           "plain_ms": p_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],

@@ -6,11 +6,14 @@ as hand-written CUDA kernels for Hopper: the kicked-Ising evolution
 (``csrc/frame_evolve.cu``), one Trotter step (``csrc/fused_step.cu``) and
 the Walsh–Hadamard transform over device-memory planes (``csrc/wht.cu``),
 the last two on the light-cone engine's path; the exact density-matrix
-engines, the Estimator primitives, digital ZNE and the learning stack
-(datasets, the paper's GNN, the MLP/linear/forest regressors, the trainer
-and the ``learning``/``ngem`` Estimators) are plain PyTorch, and so are the
+engines, the sparse Pauli-propagation engine, the stabilizer tableau, the
+Estimator primitives, digital ZNE and the learning stack (datasets, the
+paper's GNN, the MLP/linear/forest regressors, the trainer and the
+``learning``/``ngem`` Estimators) are plain PyTorch, and so are the
 experiment workflows above them (the labelled datasets, the model zoo and
-ZNE mimicry, the 20-qubit ZNE sweep, demo1 and demo2). It mirrors the JAX
+ZNE mimicry, the 20-qubit ZNE sweep, demo1 and demo2, the truncation
+audit, transfer learning and calibration drift, the Clifford scalability
+sweep and the paper-parity study). It mirrors the JAX
 package's module paths and imports neither JAX nor ``mlqem_tpu``. Every
 entry point runs on ``device="cuda"`` unless the caller asks for the CPU.
 
@@ -52,6 +55,15 @@ Quick start::
                             device="cuda")         # K4 at 20 qubits
     demo1 = demo1_zne_mimic_100q(device="cuda", num_twirls=1024,
                                  num_twirls_amp=256, shots=49, t_chunk=128)
+
+    pp = PauliPropagatorIsing(configurable_device(100, seed=1), nq=100,
+                              steps=10, dt=0.5, h=0.5 * np.pi,
+                              max_terms=131072, device="cuda")
+    values, discarded = pp.generate_stepwise(J_values, noise_scale=1,
+                                             qubits=(0, 49, 99))
+    labels = batch_expectations(clifford_circuits, single_z(0, 400),
+                                device="cuda")    # stabilizer tableau
+    parity = single_ising_parity("incoherent", device="cuda")
 """
 
 from .circuits.circuit import Circuit, stack_circuits, tensorize
@@ -79,6 +91,11 @@ from .models.mlp import MLP1, MLP2, MLP3
 from .models.train import predict, train_gnn, train_mlp, train_model
 from .ops.kicked_ising import KickedIsingEngine
 from .ops.lightcone import LightconeIsing
+from .ops.pauli_prop import PauliPropagatorIsing
+from .ops.stabilizer import (StabilizerState, batch_expectations,
+                             clifford_inverse_circuit,
+                             construct_random_clifford,
+                             force_nonzero_expectation)
 from .parallel.datagen import IsingLabelPipeline, make_ising_template
 from .primitives.estimator import (BaseEstimator, CountsBackend,
                                    EstimatorResult, IdealEstimator, Job,
@@ -89,7 +106,7 @@ from .workflows.datasets import (LabeledDataset, dataset_imbalance,
                                  mbl_dataset, noise_setting,
                                  random_circuit_dataset, tiling_dataset)
 from .workflows.demos import (demo1_zne_mimic_100q, demo2_ising_4q,
-                              lightcone_crosscheck)
+                              lightcone_crosscheck, truncation_convergence)
 from .workflows.generalization import generalization_study
 from .workflows.gnn_training import (tomography_sweep, train_gnn_mbl,
                                      train_gnn_mitigation)
@@ -97,6 +114,10 @@ from .workflows.mitigate import (encode_dataset, graph_encode_dataset,
                                  model_comparison, train_gnn_on_dataset,
                                  train_mitigation_model, train_zne_mimic,
                                  zne_batch)
+from .workflows.paper_parity import (PUBLISHED, paper_parity_study,
+                                     single_ising_parity)
+from .workflows.transfer import (calibration_drift, calibration_snapshots,
+                                 device_at_time, finetune, scalability_sweep)
 from .workflows.zne_scale import zne_sweep_ising
 
 __all__ = ["BaseEstimator", "Circuit", "CountsBackend", "DeviceModel",
@@ -107,21 +128,26 @@ __all__ = ["BaseEstimator", "Circuit", "CountsBackend", "DeviceModel",
            "KickedIsingEngine", "LabeledDataset", "LightconeIsing",
            "LinearExtrapolator", "LinearRegression", "MLP1", "MLP2", "MLP3",
            "MLQEMException", "ModelProcessor", "NgemEnsembleModel",
-           "NoiseModel", "NoisyEstimator", "PauliSum",
-           "PolynomialExtrapolator", "Problem", "RandomForestRegressor",
-           "RichardsonExtrapolator", "TorchModelProcessor",
-           "TrajectoryEstimator", "Trial", "ZNEEstimator", "ZNEProcessor",
-           "ZNEStrategy", "add_coherent_cx_noise", "configurable_device",
+           "NoiseModel", "NoisyEstimator", "PUBLISHED", "PauliPropagatorIsing",
+           "PauliSum", "PolynomialExtrapolator", "Problem",
+           "RandomForestRegressor", "RichardsonExtrapolator",
+           "StabilizerState", "TorchModelProcessor", "TrajectoryEstimator",
+           "Trial", "ZNEEstimator", "ZNEProcessor", "ZNEStrategy",
+           "add_coherent_cx_noise", "batch_expectations", "calibration_drift",
+           "calibration_snapshots", "clifford_inverse_circuit",
+           "configurable_device", "construct_random_clifford",
            "dataset_imbalance", "demo1_zne_mimic_100q", "demo2_ising_4q",
-           "encode_dataset", "generalization_study",
+           "device_at_time", "encode_dataset", "finetune",
+           "force_nonzero_expectation", "generalization_study",
            "generate_exp_val_dataset", "get_device", "graph_encode_dataset",
            "improvement_factor", "ising_dataset", "ising_step_sweep",
            "learning", "lightcone_crosscheck", "make_ising_template",
            "mbl_dataset", "model_comparison", "ngem", "noise_setting",
-           "predict", "random_circuit_dataset", "rmse",
-           "sample_twirled_circuits", "stack_circuits", "tensorize",
+           "paper_parity_study", "predict", "random_circuit_dataset", "rmse",
+           "sample_twirled_circuits", "scalability_sweep",
+           "single_ising_parity", "stack_circuits", "tensorize",
            "tiling_dataset", "tomography_sweep", "train_gnn", "train_gnn_mbl",
            "train_gnn_mitigation", "train_gnn_on_dataset",
            "train_mitigation_model", "train_mlp", "train_model",
-           "train_zne_mimic", "twirl_circuit", "zne", "zne_batch",
-           "zne_sweep_ising"]
+           "train_zne_mimic", "truncation_convergence", "twirl_circuit", "zne",
+           "zne_batch", "zne_sweep_ising"]

@@ -215,15 +215,22 @@ def generate_rb_circuit(num_qubits: int, length: int,
     (``rb.py:20-42`` ``generate_rb_circuit`` behavioral parity).
 
     1q: `length` uniform random Cliffords + the single exact inverse element.
-    Multi-qubit sequences are inverted through the stabilizer tableau
-    (``ops/stabilizer.py::clifford_inverse_circuit``), which waits for the
-    port of ``ops/stabilizer.py`` (ROADMAP item 17).
+    Multi-qubit: `length` random Clifford layers, then their inverse
+    (``ops/stabilizer.py::clifford_inverse_circuit``).
     """
-    if num_qubits != 1:
-        raise NotImplementedError(
-            "multi-qubit RB needs ops/stabilizer.clifford_inverse_circuit, "
-            "not ported yet (ROADMAP item 17)")
     rng = np.random.default_rng(seed)
+    if num_qubits != 1:
+        from ..circuits.families import random_clifford_circuit
+        from ..ops.stabilizer import clifford_inverse_circuit
+
+        body = Circuit(num_qubits)
+        for _ in range(length):
+            body = body.compose(random_clifford_circuit(
+                num_qubits, 1, seed=int(rng.integers(2 ** 31))))
+        qc = Circuit(num_qubits).compose(body).compose(
+            clifford_inverse_circuit(body))
+        qc.measure_all()
+        return qc
     table = _clifford_1q_table()
 
     def canon_key(u):

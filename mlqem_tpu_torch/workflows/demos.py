@@ -9,19 +9,18 @@ advertised reproductions (``docs/demos/``), data included:
   Clifford J=0 reference circuit at index 0, interior observables
   Z11/Z25/Z39/Z54/Z94); noisy and noise-amplified values from the exact
   light-cone engine (twirl realizations + binomial shots + TREX readout
-  correction) on ``device``; linear ZNE ``nf1 − (nf3 − nf1)/2``;
+  correction) or the sparse Pauli-propagation engine on ``device``;
+  linear ZNE ``nf1 − (nf3 − nf1)/2``;
   per-qubit random forests trained to mimic ZNE from noisy values; RMSE
   tables vs the ZNE reference (the published metric) and vs the exact
   ideal.
 * :func:`demo2_ising_4q` — ``demo2_ising_4q_hardware_plot``: 4Q TFIM
   step sweep, RF mitigation, per-qubit/aggregate RMSE + L2-per-step.
 * :func:`lightcone_crosscheck` holds the light-cone engine against
-  precomputed Pauli-propagation values, such as the K=131072 audit values
-  in ``docs/demos/results/audit_values_tpu.npz``.
-
-The sparse Pauli-propagation engine (``PauliPropagatorIsing``) is not in
-the port yet (ROADMAP item 17): demo1's ``engine="pauli_prop"`` and the
-cross-check's ``reference=None`` raise ``NotImplementedError``.
+  Pauli-propagation values, recomputed or precomputed (such as the
+  K=131072 audit values in ``docs/demos/results/audit_values_tpu.npz``).
+* :func:`truncation_convergence` is the K-doubling audit of the
+  Pauli-propagation truncation.
 """
 from __future__ import annotations
 
@@ -38,15 +37,13 @@ from ..device.registry import configurable_device, get_device
 from ..metrics import l2_distance_per_step, rmse
 from ..models.forest import RandomForestRegressor
 from ..ops.lightcone import LightconeIsing
+from ..ops.pauli_prop import PauliPropagatorIsing
 from .datasets import Device, ising_dataset, ising_step_sweep
 from .mitigate import encode_dataset
 
 # Channel-strength scale at which demo1's synthetic 100q device reproduces
 # the ibm_brisbane campaign's noise (the JAX package's calibration).
 DEMO1_CALIBRATED_SCALE = 2.5
-
-_PAULI_PROP = ("the sparse Pauli-propagation engine (PauliPropagatorIsing) "
-               "is not in the port yet (ROADMAP item 17)")
 
 
 def demo1_zne_mimic_100q(device_model: Optional[DeviceModel] = None,
@@ -97,14 +94,16 @@ def demo1_zne_mimic_100q(device_model: Optional[DeviceModel] = None,
     files beside it in ``<cache>.parts-<hash>/``; a rerun with the same
     configuration reuses them and only redoes the post-processing.
 
-    ``engine="lightcone"`` (the only engine in the port) produces every arm
-    with the exact light-cone engine on ``device``; ``max_terms`` names the
-    Pauli-propagation truncation and is ignored here. ``engine=
-    "pauli_prop"`` raises ``NotImplementedError`` (ROADMAP item 17).
+    ``engine="lightcone"`` (default) produces every arm with the exact
+    light-cone engine on ``device``; ``max_terms`` is ignored there.
+    ``engine="pauli_prop"`` is the sparse Pauli-propagation path (top-K
+    truncation at ``max_terms``): exact twirled-channel values, then
+    Binomial(shots·num_twirls) measurement sampling on the host. Its
+    K-doubling audit (:func:`truncation_convergence`) converges the demo
+    configuration to <1e-3 only through step 5 at K=16384 (step 6 at
+    K=131072).
     """
-    if engine == "pauli_prop":
-        raise NotImplementedError(f"demo1 engine='pauli_prop': {_PAULI_PROP}")
-    if engine != "lightcone":
+    if engine not in ("lightcone", "pauli_prop"):
         raise ValueError(f"unknown engine {engine!r} "
                          "(lightcone | pauli_prop)")
     device_model = device_model or configurable_device(nq, seed=1)
@@ -153,18 +152,28 @@ def demo1_zne_mimic_100q(device_model: Optional[DeviceModel] = None,
                          proto=4)
     arrays = _load_demo1_cache(arrays_cache, cache_key)
     if arrays is None:
-        arrays = _demo1_arms(device_model, nq, num_steps, J_arr, qubits, h,
-                             dt, noise_factors, shots, shots_amp,
-                             num_twirls, num_twirls_amp, nm, j0_clifford,
-                             cache_key, arrays_cache, j_chunk, t_chunk,
-                             seed, device)
+        if engine == "pauli_prop":
+            arrays = _demo1_pauli_arms(device_model, nq, num_steps, J_arr,
+                                       qubits, h, dt, max_terms,
+                                       noise_factors, nm, j0_clifford,
+                                       device)
+        else:
+            arrays = _demo1_arms(device_model, nq, num_steps, J_arr, qubits,
+                                 h, dt, noise_factors, shots, shots_amp,
+                                 num_twirls, num_twirls_amp, nm, j0_clifford,
+                                 cache_key, arrays_cache, j_chunk, t_chunk,
+                                 seed, device)
         if cache_key is not None:
             # the engine arms are the expensive part: keep them so the
             # post-processing (RF mimic, splits) reruns are free
             np.savez(arrays_cache, **arrays, **cache_key)
+    # the light-cone engine samples its shots per realization; the
+    # Pauli-propagation values are exact and are measured here
+    n_shots = None if shots is None or engine == "lightcone" else \
+        int(shots) * max(int(num_twirls), 1)
     out = _demo1_postprocess(arrays["noisy_sw"], arrays["amp_sw"],
                             arrays["ideal_sw"], J_train, J_test, qubits,
-                            num_steps, n_estimators, seed, device)
+                            num_steps, n_estimators, seed, device, n_shots)
     out.update({"max_truncation_discard": float(arrays["max_disc"]),
                 "engine": engine, "noise_scale": noise_scale})
     return out
@@ -274,19 +283,63 @@ def _demo1_arms(device_model, nq, num_steps, J_arr, qubits, h, dt,
             "max_disc": np.float32(0.0)}
 
 
+def _demo1_pauli_arms(device_model, nq, num_steps, J_arr, qubits, h, dt,
+                      max_terms, noise_factors, nm, j0_clifford, device
+                      ) -> Dict[str, np.ndarray]:
+    """The Pauli-propagation engine's arms [B, steps, Q]: one stepwise
+    propagation per arm covers every depth; row J00 again as the
+    campaign's Clifford J=0 circuit (kick h=0.5π) when asked."""
+    def engine(h_, noisy):
+        return PauliPropagatorIsing(device_model, nq=nq, steps=num_steps,
+                                    dt=dt, h=h_, max_terms=max_terms,
+                                    noise_model=nm, noise=noisy,
+                                    device=device)
+
+    eng = engine(h, True)
+    noisy_sw, err1 = eng.generate_stepwise(J_arr, noise_factors[0], qubits)
+    amp_sw, err3 = eng.generate_stepwise(J_arr, noise_factors[1], qubits)
+    ideal_sw = engine(h, False).generate_stepwise(J_arr, qubits=qubits)[0]
+    max_disc = max(float(err1.max()), float(err3.max()))
+    if j0_clifford:
+        z0 = np.zeros(1, np.float32)
+        eng0 = engine(0.5 * np.pi, True)
+        n0, e0a = eng0.generate_stepwise(z0, noise_factors[0], qubits)
+        a0, e0b = eng0.generate_stepwise(z0, noise_factors[1], qubits)
+        i0 = engine(0.5 * np.pi, False).generate_stepwise(
+            z0, qubits=qubits)[0]
+        noisy_sw[0], amp_sw[0], ideal_sw[0] = n0[0], a0[0], i0[0]
+        max_disc = max(max_disc, float(e0a.max()), float(e0b.max()))
+    return {"noisy_sw": noisy_sw, "amp_sw": amp_sw, "ideal_sw": ideal_sw,
+            "max_disc": np.float32(max_disc)}
+
+
 def _demo1_postprocess(noisy_sw: np.ndarray, amp_sw: np.ndarray,
                       ideal_sw: np.ndarray, J_train: Sequence[float],
                       J_test: Sequence[float], qubits: Sequence[int],
                       num_steps: int, n_estimators: int = 100,
-                      seed: int = 0, device: Device = "cuda") -> Dict:
+                      seed: int = 0, device: Device = "cuda",
+                      n_shots: Optional[int] = None) -> Dict:
     """demo1 from its engine arms [B, steps, Q]: the linear ZNE per row,
     the per-qubit RF mimics (features step, J, noisy values; fit on the
-    host, predict on ``device``) and the RMSE tables in both frames."""
+    host, predict on ``device``) and the RMSE tables in both frames.
+
+    With ``n_shots``, the noisy and amplified values are measured first:
+    p₁ = (1−z)/2 fixes each qubit's outcome probability, ``n_shots``
+    binomial draws (numpy ``default_rng(seed)``, step by step, noisy then
+    amplified) give the estimate."""
+    rng = np.random.default_rng(seed)
+
+    def sample_shots(z):
+        if n_shots is None:
+            return z
+        p1 = np.clip((1.0 - z) / 2.0, 0.0, 1.0)
+        return 1.0 - 2.0 * rng.binomial(n_shots, p1) / n_shots
+
     all_J = list(J_train) + list(J_test)
     rows = []
     for step in range(1, num_steps + 1):
-        noisy = noisy_sw[:, step - 1, :]
-        amp = amp_sw[:, step - 1, :]
+        noisy = sample_shots(noisy_sw[:, step - 1, :])
+        amp = sample_shots(amp_sw[:, step - 1, :])
         ideal = ideal_sw[:, step - 1, :]
         # demo1's linear extrapolation: nf1 − (nf3 − nf1)/2
         zne = noisy - (amp - noisy) / 2.0
@@ -374,21 +427,26 @@ def lightcone_crosscheck(device_model: Optional[DeviceModel] = None,
     The ideal arm is exact against exact (tolerance ``ideal_tol``); the
     noisy arms compare ``n_traj`` sampled trajectories against the exact
     twirled-channel damping, so their tolerance is statistical.
-    ``reference`` supplies the values ({"ideal"/"nf1"/"nf3": [B, ≥steps,
-    Q]}) for this (J_values, qubits, dt, h, device_model) configuration;
-    ``max_terms`` names the truncation they were computed at.
-    ``device`` is the torch device the engines run on.
+    ``reference=None`` recomputes the Pauli-propagation values at
+    ``max_terms``; or ``reference`` supplies them ({"ideal"/"nf1"/"nf3":
+    [B, ≥steps, Q]}) for this (J_values, qubits, dt, h, device_model)
+    configuration, such as the K=131072 audit values in
+    ``docs/demos/results/audit_values_tpu.npz``. ``device`` is the torch
+    device the engines run on.
     """
-    if reference is None:
-        raise NotImplementedError(
-            f"recomputing the cross-check's reference: {_PAULI_PROP}; pass "
-            "reference= precomputed values")
     device_model = device_model or configurable_device(nq, seed=seed)
     J_arr = np.asarray(list(J_values), np.float32)
     qubits = [q for q in qubits if q < nq]
 
     def pp_values(arm):
-        return np.asarray(reference[arm])[:, :steps, :]
+        if reference is not None:
+            return np.asarray(reference[arm])[:, :steps, :]
+        eng = PauliPropagatorIsing(device_model, nq=nq, steps=steps, dt=dt,
+                                   h=h, max_terms=max_terms,
+                                   noise=arm != "ideal", device=device)
+        nf = 1 if arm == "ideal" else int(arm[2:])
+        return eng.generate_stepwise(J_arr, noise_scale=nf,
+                                     qubits=qubits)[0]
 
     lc_exact = LightconeIsing(device_model, nq=nq, steps=steps,
                               device=device, dt=dt, h=h, n_traj=1,
@@ -398,7 +456,9 @@ def lightcone_crosscheck(device_model: Optional[DeviceModel] = None,
         "config": {"nq": nq, "steps": steps, "dt": dt, "h": float(h),
                    "J_values": list(map(float, J_values)),
                    "qubits": list(qubits), "max_terms": max_terms,
-                   "n_traj": n_traj, "reference": "precomputed"},
+                   "n_traj": n_traj,
+                   "reference": "precomputed" if reference is not None
+                                else "recomputed"},
         "ideal_max_diff": float(np.abs(lc_ideal - pp_values("ideal")).max()),
         "ideal_tol": ideal_tol,
         "noisy_max_diff": {},
@@ -417,6 +477,77 @@ def lightcone_crosscheck(device_model: Optional[DeviceModel] = None,
         out["ideal_max_diff"] <= ideal_tol
         and all(v <= noisy_tol for v in out["noisy_max_diff"].values()))
     return out
+
+
+def truncation_convergence(device_model: Optional[DeviceModel] = None,
+                           nq: int = 100,
+                           num_steps: int = 10,
+                           dt: float = 0.5,
+                           h: float = 0.5 * np.pi,
+                           J_values: Sequence[float] = (0.05, 0.3, 0.55),
+                           qubits: Sequence[int] = (0, 24, 49, 74, 99),
+                           K_values: Sequence[int] = (2048, 4096, 8192,
+                                                      16384),
+                           noise_factors: Sequence[float] = (0, 1, 3),
+                           tol: float = 1e-3,
+                           seed: int = 1,
+                           device: Device = "cuda") -> Dict:
+    """K-convergence audit of the sparse Pauli-propagation truncation.
+
+    The discarded-|coeff| counter is a proxy, not a bound; this audit
+    reruns the configuration at doubling term capacities K and records,
+    per Trotter step and per arm (noise factor 0 = ideal), the max |value
+    drift| between consecutive K levels. ``validated`` means the top-pair
+    drift (largest two K) is ≤ ``tol`` at every step for every arm, so the
+    values at ``K_validated = max(K_values)`` are converged to tol;
+    ``validated_depth`` is the deepest contiguous step (1-based) through
+    which every arm's top-pair drift stays ≤ tol.
+    """
+    K_values = sorted(K_values)
+    if len(K_values) < 2:
+        raise ValueError("truncation_convergence needs >=2 K values to "
+                         "measure drift between capacities")
+    device_model = device_model or configurable_device(nq, seed=seed)
+    J_arr = np.asarray(list(J_values), np.float32)
+    qubits = [q for q in qubits if q < nq]
+    arms: Dict[str, Dict] = {}
+    worst_final = 0.0
+    for nf in noise_factors:
+        vals_by_K = []
+        for K in K_values:
+            eng = PauliPropagatorIsing(device_model, nq=nq, steps=num_steps,
+                                       dt=dt, h=h, max_terms=K,
+                                       noise=(nf != 0), device=device)
+            v, _ = eng.generate_stepwise(
+                J_arr, noise_scale=max(int(nf), 1), qubits=qubits)
+            vals_by_K.append(v)
+        # max over (J, qubit) per step, for each consecutive K pair
+        drift = [np.max(np.abs(vals_by_K[i + 1] - vals_by_K[i]),
+                        axis=(0, 2)).tolist()
+                 for i in range(len(K_values) - 1)]
+        arm = "ideal" if nf == 0 else f"nf{int(nf)}"
+        arms[arm] = {"per_step_drift": drift,
+                     "max_final_pair_drift": float(max(drift[-1]))}
+        worst_final = max(worst_final, float(max(drift[-1])))
+    per_step_worst = np.max(
+        [a["per_step_drift"][-1] for a in arms.values()], axis=0)
+    validated_depth = 0
+    for s in range(num_steps):
+        if per_step_worst[s] > tol:
+            break
+        validated_depth = s + 1
+    return {
+        "config": {"nq": nq, "num_steps": num_steps, "dt": dt, "h": float(h),
+                   "J_values": list(map(float, J_values)),
+                   "qubits": list(qubits)},
+        "K_values": list(K_values),
+        "tol": tol,
+        "arms": arms,
+        "worst_final_pair_drift": worst_final,
+        "validated": bool(worst_final <= tol),
+        "validated_depth": int(validated_depth),
+        "K_validated": int(K_values[-1]),
+    }
 
 
 def demo2_ising_4q(device_model: Optional[DeviceModel] = None,

@@ -637,3 +637,40 @@ def test_forest_and_learning_card_match_cpu(cuda_device):
                         [[res.metadata[0]["original_value"]]], 1,
                         meas_bases=encode_pauli_sum_op("ZIXI"))
     assert abs(res.values[0] - rf_cpu.predict(Xq)[0]) <= 1e-6
+
+
+def test_pauli_propagation_card_matches_cpu(cuda_device):
+    """The sparse Pauli-propagation engine at nq 40 (two words), both
+    sides on the same host-rounded angles and damping: without discards
+    ≤ 1e-6; at a K that truncates, the same kept terms (≤ 1e-5)."""
+    from mlqem_tpu_torch import PauliPropagatorIsing
+
+    dev = configurable_device(40, seed=0)
+    J = np.array([0.1, 0.35], np.float32)
+    for K, tol in ((1 << 16, 1e-6), (512, 1e-5)):
+        for noise, nf in ((False, 1), (True, 1), (True, 3)):
+            out = {}
+            for d in ("cpu", cuda_device):
+                pp = PauliPropagatorIsing(dev, nq=40, steps=3, dt=0.5,
+                                          h=0.66 * np.pi, max_terms=K,
+                                          noise=noise, device=d)
+                out[str(d)] = pp.generate_stepwise(J, nf, (0, 31, 32, 39))
+            (v, e), (cv, ce) = out["cpu"], out[str(cuda_device)]
+            if K == 1 << 16:
+                assert float(e.max()) == float(ce.max()) == 0.0
+            assert np.abs(v - cv).max() <= tol
+            assert np.abs(e - ce).max() <= tol
+
+
+def test_tableau_card_matches_cpu(cuda_device):
+    from mlqem_tpu_torch.circuits.families import generate_composed_clifford
+    from mlqem_tpu_torch.circuits.observables import single_z
+    from mlqem_tpu_torch.ops.stabilizer import batch_expectations
+
+    circuits = [generate_composed_clifford(5, 40, 4, seed=s)
+                for s in range(6)]
+    for q in (0, 77, 199):
+        obs = single_z(q, 200)
+        np.testing.assert_array_equal(
+            batch_expectations(circuits, obs, device=cuda_device),
+            batch_expectations(circuits, obs, device="cpu"))

@@ -188,15 +188,14 @@ def test_exp_value_generator_batches_by_seed():
 
 
 def test_rb_matches_jax():
-    """1q RB sequences equal JAX's and compose to the identity; the RB
-    stream's labels ≤ 1e-5 of JAX's; multi-qubit RB waits for the
-    stabilizer tableau."""
-    for seed, length in ((0, 1), (3, 7), (9, 20)):
-        got = tgen.generate_rb_circuit(1, length, seed=seed)
+    """RB sequences equal JAX's at 1, 2 and 3 qubits (the multi-qubit ones
+    inverted through ``ops/stabilizer.clifford_inverse_circuit``); the RB
+    stream's labels ≤ 1e-5 of JAX's."""
+    for nq, seed, length in ((1, 0, 1), (1, 3, 7), (1, 9, 20), (2, 0, 3),
+                             (2, 5, 6), (3, 1, 4)):
+        got = tgen.generate_rb_circuit(nq, length, seed=seed)
         assert got.to_dict() == jgen.generate_rb_circuit(
-            1, length, seed=seed).to_dict()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tgen.generate_rb_circuit(2, 3, seed=0)
+            nq, length, seed=seed).to_dict()
     got = list(tgen.rb_generator(get_device("fake_lima"), lengths=(4,),
                                  num_samples=3, seed=2, device="cpu"))
     want = list(jgen.rb_generator(j_get_device("fake_lima"), lengths=(4,),

@@ -126,10 +126,32 @@ def test_demo1_j00_clifford_row(demo1_runs):
     assert max(float(np.abs(r["ideal"]).max()) for r in others) > 0.05
 
 
-def test_demo1_refuses_pauli_prop():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tdemos.demo1_zne_mimic_100q(engine="pauli_prop", device="cpu",
-                                    **DEMO1)
+def test_demo1_refuses_pauli_prop(tmp_path):
+    """demo1's sparse Pauli-propagation engine (it no longer refuses it):
+    the engine arms, J00 row and truncation discard equal JAX's within
+    1e-5; the port post-processes JAX's cache as JAX does (≤ 1e-6). An
+    unknown engine is still refused."""
+    j_cache, t_cache = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    want = jdemos.demo1_zne_mimic_100q(engine="pauli_prop",
+                                       arrays_cache=j_cache, **DEMO1)
+    got = tdemos.demo1_zne_mimic_100q(engine="pauli_prop", device="cpu",
+                                      arrays_cache=t_cache, **DEMO1)
+    j, t = np.load(j_cache), np.load(t_cache)
+    assert set(t.files) == set(j.files) and str(t["engine"]) == "pauli_prop"
+    for k in ("noisy_sw", "amp_sw", "ideal_sw", "max_disc"):
+        np.testing.assert_allclose(t[k], j[k], atol=1e-5, rtol=0,
+                                   err_msg=k)
+    assert float(t["max_disc"]) > 0.0        # K = 8192 truncates here
+    assert got["engine"] == "pauli_prop"
+    _same_outputs(tdemos.demo1_zne_mimic_100q(
+        engine="pauli_prop", device="cpu", arrays_cache=j_cache, **DEMO1),
+        want)
+    j0 = sorted((r for r in got["rows"] if r["J"] == 0.0),
+                key=lambda r: r["step"])
+    for r in j0:
+        np.testing.assert_allclose(np.asarray(r["ideal"]),
+                                   np.cos(r["step"] * np.pi / 2.0),
+                                   atol=1e-5)
     with pytest.raises(ValueError, match="unknown engine"):
         tdemos.demo1_zne_mimic_100q(engine="dm", device="cpu", **DEMO1)
 

@@ -227,14 +227,21 @@ def test_crosscheck_against_precomputed_reference():
     for nf in (1, 3):
         reference[f"nf{nf}"] = pp.generate_stepwise(
             J, noise_scale=nf, qubits=qubits)[0]
-    out = lightcone_crosscheck(nq=nq, steps=steps, qubits=qubits,
-                               n_traj=2048, noisy_tol=0.04,
-                               reference=reference, device="cpu")
+    kw = dict(nq=nq, steps=steps, qubits=qubits, n_traj=2048,
+              noisy_tol=0.04, max_terms=4096, device="cpu")
+    out = lightcone_crosscheck(reference=reference, **kw)
     assert out["passed"], out
     assert out["ideal_max_diff"] < 1e-5
     assert set(out["noisy_max_diff"]) == {"nf1", "nf3"}
-    with pytest.raises(NotImplementedError, match="item 17"):
-        lightcone_crosscheck(nq=nq, steps=steps, device="cpu")
+    assert out["config"]["reference"] == "precomputed"
+    # reference=None recomputes the same values with the port's engine
+    own = lightcone_crosscheck(reference=None, **kw)
+    assert own["config"] == {**out["config"], "reference": "recomputed"}
+    assert own["passed"] == out["passed"]
+    assert own["ideal_max_diff"] == pytest.approx(out["ideal_max_diff"],
+                                                  abs=1e-6)
+    for arm, v in out["noisy_max_diff"].items():
+        assert own["noisy_max_diff"][arm] == pytest.approx(v, abs=1e-6)
 
 
 def test_noise_model_scale_matches_jax():

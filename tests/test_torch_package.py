@@ -48,6 +48,42 @@ def test_ast_scan_catches_a_jax_import(tmp_path):
     assert {"jax", "mlqem_tpu"} <= set(_imported_roots(str(p)))
 
 
+def _device_defaults(path):
+    """(function, default) of every ``device`` argument with a constant
+    default in a module."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        args = node.args.args + node.args.kwonlyargs
+        defaults = ([None] * (len(node.args.args) - len(node.args.defaults))
+                    + node.args.defaults + node.args.kw_defaults)
+        for arg, default in zip(args, defaults):
+            if arg.arg == "device" and isinstance(default, ast.Constant):
+                yield node.name, default.value
+    for node in ast.walk(tree):
+        if isinstance(node, ast.AnnAssign) and getattr(
+                node.target, "id", None) == "device" and isinstance(
+                node.value, ast.Constant):
+            yield "dataclass field", node.value.value
+
+
+def test_entry_points_default_to_the_card():
+    """No entry point of the port falls back to the CPU: every ``device``
+    argument with a default defaults to "cuda"."""
+    found = {}
+    for path in _modules():
+        for fn, default in _device_defaults(path):
+            found[(os.path.relpath(path, ROOT), fn)] = default
+    assert len(found) >= 40
+    bad = {k: v for k, v in found.items() if v != "cuda"}
+    assert not bad, bad
+    for fn in ("__init__", "scalability_sweep", "single_ising_parity",
+               "run_tableau", "truncation_convergence"):
+        assert fn in {f for _, f in found}
+
+
 def test_exports():
     for name in ("KickedIsingEngine", "configurable_device", "get_device",
                  "NoiseModel", "Circuit", "IsingLabelPipeline",
@@ -67,7 +103,11 @@ def test_exports():
                  "train_mlp", "predict", "learning", "ngem",
                  "ModelProcessor", "TorchModelProcessor", "ZNEProcessor",
                  "EmptyProcessor", "GNNProcessor", "train_gnn_mitigation",
-                 "tomography_sweep", "improvement_factor", "rmse"):
+                 "tomography_sweep", "improvement_factor", "rmse",
+                 "PauliPropagatorIsing", "StabilizerState",
+                 "batch_expectations", "truncation_convergence", "finetune",
+                 "calibration_drift", "scalability_sweep",
+                 "single_ising_parity", "paper_parity_study"):
         assert hasattr(mlqem_tpu_torch, name)
     assert set(mlqem_tpu_torch.__all__) <= set(dir(mlqem_tpu_torch))
     # the state carriers from the JAX package
