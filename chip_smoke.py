@@ -121,7 +121,29 @@ Phases, each of which exits non-zero on failure:
     dataset sizes with cut MLP/GNN epochs and no forest arm (printed): the
     noisy RMSE within 10% of the published 0.172, every arm beside the
     published one. Each phase 20-21 step prints its wall time and peak
-    device memory.
+    device memory;
+22. ``IsingLabelPipeline`` above K2's shared-memory width (nq 14, 2
+    steps): ``"frame"`` (K2 with each row in device memory, one launch)
+    and ``"trajectory"`` (the gather engine, no launch) card vs CPU on
+    shared draws (``shots=None``, ≤ 1e-5), the engine each took
+    (``noisy_engine``), a timed batch; K2 against its plain version at the
+    timed batch's shape, with both times and the bound; at nq 13
+    ``"frame"`` still launches K2 once;
+23. ``vqe_dataset`` at the reference's size (fake_lima, 5 Paulis × 5000
+    ansatz draws, 10,000 shots): seconds split into the Estimators and the
+    host transpile + encode, peak memory; a 200-circuit slice card vs CPU
+    (``shots=None``, ≤ 1e-5);
+24. ``h2_dissociation_curve``'s steps at its defaults (``vqe_dataset`` at
+    80 draws a Pauli, ``train_vqe_processor`` with RF(300),
+    ``vqe_mitigation_study`` with COBYLA 60, 10,000 shots) on
+    ``PUBLISHED_H2``'s four bond lengths: each arm beside the published
+    one, the mean mitigated error below the mean noisy error, the
+    dataset, forest, per-bond and per-arm seconds, the device
+    busy share of one mitigated energy evaluation; one bond at
+    ``shots=None``, COBYLA 20, card vs CPU (every arm ≤ 1e-5);
+25. ``entry()``'s forward card vs CPU (≤ 1e-5) and its ms, the native
+    encoder library built with the host compiler against its numpy
+    versions, a QASM round trip. No kernel runs in phases 23-25.
 
 Every kernel's record holds its bound: the larger of the bytes it must move
 over 3.35 TB/s and the f32 operations it must do over 67 TFLOP/s (the
@@ -184,6 +206,16 @@ AUDIT_TOL = 1e-3                       # the cross-check's ideal_tol
 AUDIT_GATED = 6                        # steps held to the shipped values
 DRIFT_GATED = 5                        # steps whose top-pair drift is held
 PARITY_MLP_EPOCHS, PARITY_GNN_EPOCHS = 20, 10   # of 200 / 400, cut
+# phases 22-25: the frame pipeline above K2's shared-memory width, the VQE
+# application
+WIDE_FRAME_NQ = 14                     # K2's shared-memory width + 1
+WIDE_FRAME_B, WIDE_FRAME_T = 8, 8      # card vs CPU on shared draws
+WIDE_FRAME_TIME_B = 256                # the timed batch (x 32 trajectories)
+VQE_SAMPLES = 5000                     # vqe_data_gen_parallel.py's per Pauli
+VQE_SHOTS = 10000
+VQE_CHECK_SAMPLES = 40                 # 200 circuits card vs CPU
+H2_BONDS = [0, 1, 2, 3]                # PUBLISHED_H2's bond lengths
+H2_CHECK_BOND, H2_CHECK_MAXITER = 3, 20
 PARITY_ARMS = ("ols", "mlp", "gnn", "zne")      # the forest arm is cut
 # phase 3's K1 cases: (nq, rows, random start)
 K1_CASES = [(6, 4099, False), (8, 4099, False), (8, 16384, False),
@@ -425,7 +457,7 @@ def frame_phases(card, cuda, device_model):
     # -- 6. K2 vs its plain version --------------------------------------------
     rng = np.random.default_rng(6)
     for nq, rows in [(1, 999), (2, 1001), (4, 4097), (5, 4099), (6, 2053),
-                     (10, 3001), (11, 129), (13, 257)]:
+                     (10, 3001), (11, 129), (13, 257), (14, 600), (16, 9)]:
         for label, (plan, n_rot) in (
                 ("random plan of every kind",
                  kfe.every_kind_plan(rng, nq, 148)),
@@ -2107,6 +2139,310 @@ def stabilizer_phase(card, cuda):
     phase_end("21c", t0, card)
 
 
+def wide_frame_phase(card, cuda):
+    """Phase 22: IsingLabelPipeline above K2's shared-memory width (nq 14):
+    the engine each method takes, card vs CPU on shared draws, one K2
+    launch for "frame" (the global-memory tier); K2 against its plain
+    version at the timed batch's shape; at nq 13 the frame method still
+    runs K2."""
+    import numpy as np
+    import torch
+
+    import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+    from mlqem_tpu_torch import IsingLabelPipeline, configurable_device
+    from mlqem_tpu_torch.ops.frame_trajectory import frame_theta_eff
+
+    t0 = phase_begin()
+    nq, B, T = WIDE_FRAME_NQ, WIDE_FRAME_B, WIDE_FRAME_T
+    dev = configurable_device(nq, seed=0)
+    rng = np.random.default_rng(22)
+    J = rng.uniform(0.05, 0.6, size=B).astype(np.float32)
+    engines = {"frame": "k2", "trajectory": "trajectory_gather"}
+    for method, engine in engines.items():
+        out, draws = {}, None
+        for d in (cuda, "cpu"):
+            pipe = IsingLabelPipeline(dev, nq=nq, steps=2, device=d,
+                                      shots=None, method=method, n_traj=T)
+            require(pipe.noisy_engine == engine,
+                    f"22: method={method!r} at nq={nq} took "
+                    f"{pipe.noisy_engine!r}, not {engine!r}")
+            if draws is None:
+                # mostly identity, plus a share of uniform Paulis on every op
+                draws = rng.integers(0, 16, size=(
+                    B, T, pipe.ct_struct.max_ops)).astype(np.int32)
+                draws[rng.random(draws.shape) < 0.7] = 0
+            shared = torch.as_tensor(draws, device=pipe.device)
+            pipe.sample_draws = lambda batch, gen, _d=shared: _d
+            reset_launches()
+            out[str(d)] = pipe.generate(J, seed=0)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            k2 = int(engine == "k2" and pipe.device.type == "cuda")
+            print(f"  {method!r} on {d}: launches {launches}")
+            require(launches == {**{k: 0 for k in launches},
+                                 "evolve_frame_marginals": k2},
+                    f"22: {method} on {d} launched {launches}")
+        err = max(float(np.abs(a - b).max())
+                  for a, b in zip(out[str(cuda)], out["cpu"]))
+        print(f"IsingLabelPipeline(nq={nq}, steps=2, method={method!r}) -> "
+              f"engine {engine!r}: {B} circuits x {T} trajectories, "
+              f"shots=None, shared draws: card vs CPU max|Δ| = {err:.3e}; "
+              f"mean |noisy - ideal| "
+              f"{float(np.abs(out['cpu'][1] - out['cpu'][0]).mean()):.4f}")
+        require(err <= TOL, f"22: {method} card vs CPU {err}")
+        pipe = IsingLabelPipeline(dev, nq=nq, steps=2, device=cuda,
+                                  method=method, n_traj=N_TRAJ)
+        Jt = rng.uniform(0.05, 0.6, size=WIDE_FRAME_TIME_B)
+        pipe.generate(Jt, seed=1)
+        secs, _ = sync_s(lambda: pipe.generate(Jt, seed=2))
+        print(f"  engine {engine!r} at nq={nq}, {WIDE_FRAME_TIME_B} circuits "
+              f"x {N_TRAJ} trajectories, {SHOTS} shots: {secs * 1e3:.1f} ms "
+              f"a batch = {WIDE_FRAME_TIME_B * 60 / secs:.0f} pairs/min "
+              f"[{card}]")
+        if engine != "k2":
+            continue
+        # K2's global-memory tier at this batch's shape, against its plain
+        # version
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(3)
+        ct = pipe.template.bind(torch.as_tensor(
+            Jt[:, None], dtype=torch.float32, device=cuda))
+        theta, _, plan = frame_theta_eff(
+            pipe.ct_struct, ct.params, pipe.sample_draws(len(Jt), gen))
+        got = kfe.evolve_frame_marginals(theta, plan, nq)
+        want = kfe.evolve_frame_marginals_reference(theta, plan, nq)
+        torch.cuda.synchronize()
+        k2_err = (got - want).abs().max().item()
+        del got, want
+        require(k2_err <= K2_TOL, f"22: K2 at nq={nq} disagrees with its "
+                f"plain version: {k2_err}")
+        k_ms, p_ms, kernel_ms, plain_ms = time_kernel_and_plain(
+            lambda: kfe.evolve_frame_marginals(theta, plan, nq),
+            lambda: kfe.evolve_frame_marginals_reference(theta, plan, nq), 1)
+        fused = kfe.fuse_plan(plan)
+        rows = theta.shape[0]
+        k2_bound = bound(4 * theta.numel() + 4 * rows * nq + 16 * len(fused),
+                         rows * plan_flops(fused, nq))
+        slots = kfe.scratch_slots(nq, rows, torch.cuda.get_device_properties(
+            cuda).multi_processor_count)
+        print(f"  evolve_frame_marginals nq={nq} (row in device memory, "
+              f"{slots} slots of {8 << nq} B) ops={len(plan)} (run as "
+              f"{len(fused)}) rows={rows}: max|Δ|={k2_err:.3e}; kernel "
+              f"{k_ms:.3f} ms (runs {[round(x, 3) for x in kernel_ms]}), "
+              f"plain PyTorch {p_ms:.3f} ms (runs "
+              f"{[round(x, 3) for x in plain_ms]}); bound "
+              f"{k2_bound[0]:.3f} ms ({k2_bound[1]}) [{card}]")
+        del theta, pipe
+        torch.cuda.empty_cache()
+    pipe = IsingLabelPipeline(configurable_device(13, seed=0), nq=13, steps=2,
+                              device=cuda, method="frame", n_traj=T)
+    reset_launches()
+    pipe.generate(J, seed=0)
+    torch.cuda.synchronize()
+    k2 = read_launches()["evolve_frame_marginals"]
+    print(f"IsingLabelPipeline(nq=13, method='frame') -> engine "
+          f"{pipe.noisy_engine!r}: {k2} K2 launch")
+    require(pipe.noisy_engine == "k2" and k2 == 1, "22: nq 13 left K2")
+    phase_end("22", t0, card)
+
+
+def vqe_dataset_phase(card, cuda):
+    """Phase 23: vqe_dataset at the reference's size, and a 200-circuit
+    slice card vs CPU."""
+    import numpy as np
+
+    from mlqem_tpu_torch import get_device, vqe_dataset
+    from mlqem_tpu_torch.utils.profiling import StageTimer
+
+    lima = get_device("fake_lima")
+    t0 = phase_begin()
+    timer = StageTimer()
+    reset_launches()
+    secs, data = sync_s(lambda: vqe_dataset(
+        lima, samples_per_pauli=VQE_SAMPLES, shots=VQE_SHOTS, device=cuda,
+        timer=timer))
+    n = len(data["circuits"])
+    print(f"vqe_dataset(fake_lima, TwoLocal(ry, cz, reps 3, full), 5 Paulis "
+          f"x {VQE_SAMPLES} = {n} circuits, {VQE_SHOTS} shots): {secs:.2f} s; "
+          f"estimators {timer.totals['estimators']:.2f} s, host transpile + "
+          f"encode {timer.totals['encode']:.2f} s "
+          f"({timer.totals['encode'] / n * 1e3:.3f} ms a circuit); X "
+          f"{data['X'].shape}; mean |noisy - ideal| "
+          f"{float(np.abs(data['noisy'] - data['ideal']).mean()):.4f} [{card}]")
+    require(n == 5 * VQE_SAMPLES and data["X"].shape[0] == n
+            and bool(np.isfinite(data["X"]).all()), "23: the dataset")
+    require(not any(read_launches().values()),
+            f"23: a kernel ran: {read_launches()}")
+    phase_end("23 (reference size)", t0, card)
+    t0 = phase_begin()
+    check = [vqe_dataset(lima, samples_per_pauli=VQE_CHECK_SAMPLES,
+                         shots=None, device=d) for d in (cuda, "cpu")]
+    err = max(float(np.abs(check[0][k] - check[1][k]).max())
+              for k in ("ideal", "noisy", "X"))
+    print(f"vqe_dataset, {5 * VQE_CHECK_SAMPLES} circuits, shots=None: card "
+          f"vs CPU max|Δ| (ideal, noisy, X) = {err:.3e}")
+    require(err <= TOL, f"23: card vs CPU {err}")
+    phase_end("23 (card vs CPU)", t0, card)
+
+
+def h2_curve_phase(card, cuda):
+    """Phase 24: h2_dissociation_curve at its defaults on PUBLISHED_H2's
+    four bond lengths, the busy share of one mitigated energy evaluation,
+    and one bond card vs CPU."""
+    import numpy as np
+
+    from mlqem_tpu_torch import (PUBLISHED_H2, VQE, NoisyEstimator,
+                                 RandomForestRegressor, get_device, learning,
+                                 load_h2_problems, train_vqe_processor,
+                                 vqe_dataset, vqe_mitigation_study)
+    from mlqem_tpu_torch.circuits.families import two_local_ansatz
+    from mlqem_tpu_torch.mitigation.learning import ModelProcessor
+    from mlqem_tpu_torch.utils.profiling import StageTimer
+
+    lima = get_device("fake_lima")
+    t0 = phase_begin()
+    reset_launches()
+    # h2_dissociation_curve at its defaults, step by step as it runs them,
+    # to time each step and keep the forest
+    timer = StageTimer()
+    data_s, data = sync_s(lambda: vqe_dataset(
+        lima, num_qubits=2, samples_per_pauli=80, shots=VQE_SHOTS,
+        device=cuda, timer=timer))
+    fit_s, (processor, stats) = sync_s(lambda: train_vqe_processor(
+        lima, data, device=cuda))
+    problems = load_h2_problems()
+    rows, bond_s = [], []
+    for length, fci, ham in [problems[i] for i in H2_BONDS]:
+        secs, res = sync_s(lambda: vqe_mitigation_study(
+            lima, ham, processor, maxiter=60, shots=VQE_SHOTS, device=cuda,
+            timer=timer))
+        rows.append({"bond_length": length, "fci": fci, **res})
+        bond_s.append(secs)
+    secs = data_s + fit_s + sum(bond_s)
+    print(f"h2_dissociation_curve's steps (fake_lima, bonds {H2_BONDS}; 80 "
+          f"per Pauli, RF(300), COBYLA 60, {VQE_SHOTS} shots): {secs:.2f} s "
+          f"= dataset {data_s:.2f} s + forest {fit_s:.2f} s (host fit, "
+          f"held-out predict) + bonds "
+          f"{[round(x, 2) for x in bond_s]} s [{card}]")
+    print("  stages: " + "; ".join(f"{k} {v:.2f} s" for k, v in
+                                   timer.totals.items()))
+    print(f"  forest on the held-out fifth: RMSE noisy "
+          f"{stats['rmse_noisy']:.5f}, mitigated {stats['rmse_mitigated']:.5f}")
+    for r in rows:
+        i = PUBLISHED_H2["bond_lengths"].index(r["bond_length"])
+        print(f"  bond {r['bond_length']} A (FCI {r['fci']:.4f}, exact "
+              f"{r['exact']:.4f}): " + ", ".join(
+                  f"{arm} {r[arm]:.4f} (published {PUBLISHED_H2[arm][i]})"
+                  for arm in ("ideal", "noisy", "mitigated"))
+              + f"; |error| noisy {r['error_noisy']:.4f}, mitigated "
+              f"{r['error_mitigated']:.4f}")
+    mean_noisy = float(np.mean([r["error_noisy"] for r in rows]))
+    mean_mit = float(np.mean([r["error_mitigated"] for r in rows]))
+    print(f"  mean |error| over {len(rows)} bonds: noisy {mean_noisy:.4f}, "
+          f"mitigated {mean_mit:.4f}")
+    require(mean_mit < mean_noisy, "24: mitigation did not beat the noisy "
+            f"arm on average ({mean_mit} >= {mean_noisy})")
+    require(not any(read_launches().values()),
+            f"24: a kernel ran: {read_launches()}")
+
+    _, _, ham = problems[H2_CHECK_BOND]
+    est = learning(NoisyEstimator, processor, skip_transpile=True)(
+        lima, shots=VQE_SHOTS, device=cuda)
+    vqe = VQE(est, two_local_ansatz(2, reps=3), separate_observables=True)
+    theta = np.random.default_rng(24).uniform(-np.pi, np.pi, 8)
+    print(f"  one mitigated energy evaluation (5 terms, {VQE_SHOTS} shots): "
+          + device_busy(lambda: vqe._energy(ham, theta), 5) + f" [{card}]")
+    phase_end("24 (curve)", t0, card)
+
+    t0 = phase_begin()
+    rf = processor._model
+    rf_cpu = RandomForestRegressor(rf.n_estimators, device="cpu").set_stacked(
+        *[a.cpu().numpy() for a in rf._stacked], rf._depth)
+    proc_cpu = ModelProcessor(rf_cpu, lima, skip_transpile=False)
+    arms = {}
+    for d, proc in ((cuda, processor), ("cpu", proc_cpu)):
+        arms[str(d)] = vqe_mitigation_study(lima, ham, proc,
+                                            maxiter=H2_CHECK_MAXITER,
+                                            shots=None, device=d)
+    err = max(abs(arms[str(cuda)][k] - arms["cpu"][k])
+              for k in arms["cpu"])
+    print(f"vqe_mitigation_study bond {problems[H2_CHECK_BOND][0]} "
+          f"A, shots=None, COBYLA {H2_CHECK_MAXITER}: card vs CPU max|Δ| over "
+          f"the arms = {err:.3e} (" + ", ".join(
+              f"{k} {v:.6f}" for k, v in arms[str(cuda)].items()) + ")")
+    require(err <= TOL, f"24: card vs CPU {err}")
+    phase_end("24 (card vs CPU)", t0, card)
+
+
+def host_modules_phase(card, cuda):
+    """Phase 25: entry()'s forward card vs CPU, the native encoder library
+    built here against its numpy versions, a QASM round trip."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import get_device
+    from mlqem_tpu_torch.circuits.families import random_circuit
+    from mlqem_tpu_torch.data.encoders import encode_data
+    from mlqem_tpu_torch.entry import entry
+    from mlqem_tpu_torch.transpile.qasm import from_qasm, to_qasm
+    from mlqem_tpu_torch.utils import native
+
+    t0 = phase_begin()
+    fn, args = entry(device=cuda)
+    cpu_args = [{k: v.cpu() for k, v in args[0].items()}] + [
+        a.cpu() for a in args[1:]]
+    got = fn(*args)
+    err = float((got.cpu() - fn(*cpu_args)).abs().max())
+    ms = time_ms(lambda: fn(*args), 20)
+    print(f"entry(): ExpValCircuitGraphModel3 (hidden 15) forward at B 8, N "
+          f"32, F 22, K 4: card vs CPU max|Δ| = {err:.3e}; {ms:.3f} ms a "
+          f"forward [{card}]")
+    require(tuple(got.shape) == (8, 4) and bool(torch.isfinite(got).all())
+            and err <= TOL, f"25: entry forward {err}")
+
+    lima = get_device("fake_lima")
+    lib = native.load_native()
+    require(lib is not None, "25: the native encoder library did not build")
+    rng = np.random.default_rng(25)
+    circs = [random_circuit(4, int(rng.integers(2, 6)),
+                            seed=int(rng.integers(2 ** 31)))
+             for _ in range(300)]
+    props = lima.properties()
+    kind_index = {g: i for i, g in enumerate(sorted(props["gates_set"]))}
+    flat = native.flatten_circuits(circs, kind_index)
+    same = (np.array_equal(native.count_gates_batch(flat, len(kind_index)),
+                           native.count_gates_batch_reference(
+                               flat, len(kind_index)))
+            and np.array_equal(native.angle_hist_batch(flat, 40),
+                               native.angle_hist_batch_reference(flat, 40))
+            and all(np.array_equal(a, b) for a, b in zip(
+                native.wire_edges_batch(flat),
+                native.wire_edges_batch_reference(flat))))
+    vals = rng.uniform(-1, 1, (300, 4)).tolist()
+    t = time.perf_counter()
+    X, _ = native.fast_encode_data(circs, props, vals, vals, 4)
+    fast_s = time.perf_counter() - t
+    t = time.perf_counter()
+    X_ref, _ = encode_data(circs, props, vals, vals, 4)
+    ref_s = time.perf_counter() - t
+    x_err = float(np.abs(X - X_ref).max())
+    print(f"native encoders ({os.path.basename(lib._name)}): batches equal to "
+          f"the numpy versions: {same}; fast_encode_data vs encode_data on "
+          f"300 circuits max|Δ| = {x_err:.3e}; {fast_s * 1e3:.1f} ms vs "
+          f"{ref_s * 1e3:.1f} ms on the host")
+    require(same and x_err <= 1e-6, "25: native encoders disagree")
+
+    qc = circs[0].copy()
+    qc.measure_all()
+    text = to_qasm(qc)
+    back = from_qasm(text)
+    require(to_qasm(back) == text and back.count_ops() == qc.count_ops(),
+            "25: QASM round trip")
+    print(f"QASM round trip: {len(text.splitlines())} lines, "
+          f"{sum(qc.count_ops().values())} ops")
+    phase_end("25", t0, card)
+
+
 def main():
     require(os.path.isdir(os.path.join(ROOT, "mlqem_tpu_torch")),
             f"no mlqem_tpu_torch package beside {__file__}")
@@ -2296,6 +2632,16 @@ def main():
     stabilizer_phase(card, cuda)
     torch.cuda.synchronize()
     print(f"phases 20-21 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wide_frame_phase(card, cuda)
+    torch.cuda.empty_cache()
+    vqe_dataset_phase(card, cuda)
+    torch.cuda.empty_cache()
+    h2_curve_phase(card, cuda)
+    host_modules_phase(card, cuda)
+    torch.cuda.synchronize()
+    print(f"phases 22-25 wall time {time.perf_counter() - t0:.1f} s [{card}]")
 
     k1 = {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
           "plain_ms": p_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],

@@ -13,7 +13,9 @@ paper's GNN, the MLP/linear/forest regressors, the trainer and the
 experiment workflows above them (the labelled datasets, the model zoo and
 ZNE mimicry, the 20-qubit ZNE sweep, demo1 and demo2, the truncation
 audit, transfer learning and calibration drift, the Clifford scalability
-sweep and the paper-parity study). It mirrors the JAX
+sweep and the paper-parity study), and the paper's VQE application on the
+learning Estimator (the H2 problem set, ``VQE``, the ansatz dataset, the
+forest processor and the H2 dissociation curve). It mirrors the JAX
 package's module paths and imports neither JAX nor ``mlqem_tpu``. Every
 entry point runs on ``device="cuda"`` unless the caller asks for the CPU.
 
@@ -64,8 +66,12 @@ Quick start::
     labels = batch_expectations(clifford_circuits, single_z(0, 400),
                                 device="cuda")    # stabilizer tableau
     parity = single_ising_parity("incoherent", device="cuda")
+
+    rows = h2_dissociation_curve(get_device("fake_lima"), device="cuda")
 """
 
+from .apps.chemistry import load_h2_problems
+from .apps.vqe import VQE, VQEResult, exact_minimum_eigenvalue, spsa_minimize
 from .circuits.circuit import Circuit, stack_circuits, tensorize
 from .circuits.observables import PauliSum
 from .data.generators import ExpValueEntry, generate_exp_val_dataset
@@ -118,6 +124,9 @@ from .workflows.paper_parity import (PUBLISHED, paper_parity_study,
                                      single_ising_parity)
 from .workflows.transfer import (calibration_drift, calibration_snapshots,
                                  device_at_time, finetune, scalability_sweep)
+from .workflows.vqe_study import (PUBLISHED_H2, h2_dissociation_curve,
+                                  train_vqe_processor, vqe_dataset,
+                                  vqe_mitigation_study)
 from .workflows.zne_scale import zne_sweep_ising
 
 __all__ = ["BaseEstimator", "Circuit", "CountsBackend", "DeviceModel",
@@ -128,26 +137,29 @@ __all__ = ["BaseEstimator", "Circuit", "CountsBackend", "DeviceModel",
            "KickedIsingEngine", "LabeledDataset", "LightconeIsing",
            "LinearExtrapolator", "LinearRegression", "MLP1", "MLP2", "MLP3",
            "MLQEMException", "ModelProcessor", "NgemEnsembleModel",
-           "NoiseModel", "NoisyEstimator", "PUBLISHED", "PauliPropagatorIsing",
-           "PauliSum", "PolynomialExtrapolator", "Problem",
-           "RandomForestRegressor", "RichardsonExtrapolator",
+           "NoiseModel", "NoisyEstimator", "PUBLISHED", "PUBLISHED_H2",
+           "PauliPropagatorIsing", "PauliSum", "PolynomialExtrapolator",
+           "Problem", "RandomForestRegressor", "RichardsonExtrapolator",
            "StabilizerState", "TorchModelProcessor", "TrajectoryEstimator",
-           "Trial", "ZNEEstimator", "ZNEProcessor", "ZNEStrategy",
-           "add_coherent_cx_noise", "batch_expectations", "calibration_drift",
-           "calibration_snapshots", "clifford_inverse_circuit",
-           "configurable_device", "construct_random_clifford",
-           "dataset_imbalance", "demo1_zne_mimic_100q", "demo2_ising_4q",
-           "device_at_time", "encode_dataset", "finetune",
+           "Trial", "VQE", "VQEResult", "ZNEEstimator", "ZNEProcessor",
+           "ZNEStrategy", "add_coherent_cx_noise", "batch_expectations",
+           "calibration_drift", "calibration_snapshots",
+           "clifford_inverse_circuit", "configurable_device",
+           "construct_random_clifford", "dataset_imbalance",
+           "demo1_zne_mimic_100q", "demo2_ising_4q", "device_at_time",
+           "encode_dataset", "exact_minimum_eigenvalue", "finetune",
            "force_nonzero_expectation", "generalization_study",
            "generate_exp_val_dataset", "get_device", "graph_encode_dataset",
-           "improvement_factor", "ising_dataset", "ising_step_sweep",
-           "learning", "lightcone_crosscheck", "make_ising_template",
-           "mbl_dataset", "model_comparison", "ngem", "noise_setting",
-           "paper_parity_study", "predict", "random_circuit_dataset", "rmse",
+           "h2_dissociation_curve", "improvement_factor", "ising_dataset",
+           "ising_step_sweep", "learning", "lightcone_crosscheck",
+           "load_h2_problems", "make_ising_template", "mbl_dataset",
+           "model_comparison", "ngem", "noise_setting", "paper_parity_study",
+           "predict", "random_circuit_dataset", "rmse",
            "sample_twirled_circuits", "scalability_sweep",
-           "single_ising_parity", "stack_circuits", "tensorize",
-           "tiling_dataset", "tomography_sweep", "train_gnn", "train_gnn_mbl",
-           "train_gnn_mitigation", "train_gnn_on_dataset",
+           "single_ising_parity", "spsa_minimize", "stack_circuits",
+           "tensorize", "tiling_dataset", "tomography_sweep", "train_gnn",
+           "train_gnn_mbl", "train_gnn_mitigation", "train_gnn_on_dataset",
            "train_mitigation_model", "train_mlp", "train_model",
-           "train_zne_mimic", "truncation_convergence", "twirl_circuit", "zne",
+           "train_vqe_processor", "train_zne_mimic", "truncation_convergence",
+           "twirl_circuit", "vqe_dataset", "vqe_mitigation_study", "zne",
            "zne_batch", "zne_sweep_ising"]

@@ -47,22 +47,31 @@
 // For nq 11-13 the kernel keeps a row in shared memory: one block a row,
 // one barrier an op. (Bits 10-12 would lie across warps and need a block
 // exchange wherever an op moves them; the bench never runs those widths.)
+// For nq 14-30 (the frame engine's widest rows; 14 qubits is the Ising
+// pipeline's first width past shared memory) the same block loop runs on a
+// row in global memory: persistent blocks of 512 threads, each with a slot
+// of a scratch buffer that the wrapper allocates, one barrier an op. At
+// nq = 14 the grid's slots (128 KB each) stay mostly in L2; each op reads
+// and writes the whole row there.
 // The wrapper merges each cx(a, b) rz(b) cx(a, b) of a plan with no op on a
 // or b between them into rzz(a, b), exactly (ops/kernels/frame_evolve.py::
 // fuse_plan): the bench's 148 ops run as 76.
 // Arithmetic is f32 throughout with full-precision sincosf (no fast math).
 // Left for later: the lane path's shuffles carry most of what is left at
 // nq=10 (half of the bench's rx move a lane bit); runs of ops on disjoint
-// bits could share one pass over the registers; nq 11-13 in registers.
+// bits could share one pass over the registers; nq 11-13 in registers;
+// nq >= 14 in a thread-block cluster's distributed shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxNq = 13;
+constexpr int kMaxNq = 30;
+constexpr int kMaxSmemNq = 13;        // widths with a row in shared memory
 constexpr int kMaxWarpNq = 10;        // widths that the warp kernel takes
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;      // a block of the shared-memory tier
+constexpr int kGlobalThreads = 512;   // a block of the global-memory tier
 constexpr int kWarps = 4;             // warps a block of the warp kernel
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr size_t kMaxSmem = 232448;   // per block on sm_90
@@ -400,7 +409,8 @@ frame_warp_kernel(const float* __restrict__ theta,
 }
 
 // ---------------------------------------------------------------------------
-// nq 11-13: a row in shared memory
+// nq 11-30: a row in a block, in shared memory (nq 11-13) or in a global
+// memory slot (nq 14-30)
 // ---------------------------------------------------------------------------
 
 // Index of the p-th amplitude whose bit q is 0.
@@ -408,24 +418,11 @@ __device__ __forceinline__ int insert_zero(int p, int q) {
   return ((p >> q) << (q + 1)) | (p & ((1 << q) - 1));
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-frame_smem_kernel(const float* __restrict__ theta,
-                  const int4* __restrict__ plan, float* __restrict__ out,
-                  int nq, int n_ops, int n_rot) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float partial[kMaxThreads / 32][kMaxNq];
-  int4* ops = reinterpret_cast<int4*>(smem_raw);          // [n_ops]
-  float* re = reinterpret_cast<float*>(ops + n_ops);      // [dim]
-  const int dim = 1 << nq;
-  const int half = dim >> 1;
-  float* im = re + dim;                                   // [dim]
-  float* cs = im + dim;                                   // [n_rot][cos, sin]
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const long long row = blockIdx.x;
-
-  for (int i = tid; i < n_ops; i += nt) ops[i] = plan[i];
-  const float* th = theta + row * n_rot;
+// The row's cos/sin(theta/2) into cs and |0...0> into re/im; one barrier.
+__device__ __forceinline__ void block_row_start(const float* th, int n_rot,
+                                                float* cs, float* re,
+                                                float* im, int dim) {
+  const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < n_rot; i += nt) {
     float s, c;
     sincosf(0.5f * th[i], &s, &c);
@@ -437,7 +434,15 @@ frame_smem_kernel(const float* __restrict__ theta,
     im[j] = 0.0f;
   }
   __syncthreads();
+}
 
+// The plan on a row held by the whole block, one barrier an op. re/im are
+// in shared or global memory: the barrier makes a block's writes to either
+// visible to the block.
+__device__ void block_row_ops(const int4* ops, int n_ops, const float* cs,
+                              float* re, float* im, int nq) {
+  const int half = 1 << (nq - 1);
+  const int tid = threadIdx.x, nt = blockDim.x;
   for (int k = 0; k < n_ops; ++k) {
     const int4 op = ops[k];
     const int kind = op.x, a = op.y, b = op.z;
@@ -540,20 +545,28 @@ frame_smem_kernel(const float* __restrict__ theta,
     }
     __syncthreads();
   }
+}
 
-  // per-qubit P(1): per-thread partials, warp shuffles, one smem pass
-  float acc[kMaxNq];
+// The row's per-qubit P(1) into out_row: per-thread partials, warp
+// shuffles, one shared-memory pass. NQ is the tier's widest row.
+template <int NQ>
+__device__ __forceinline__ void block_row_marginals(const float* re,
+                                                    const float* im, int nq,
+                                                    float (*partial)[NQ],
+                                                    float* out_row) {
+  const int tid = threadIdx.x, nt = blockDim.x, dim = 1 << nq;
+  float acc[NQ];
 #pragma unroll
-  for (int q = 0; q < kMaxNq; ++q) acc[q] = 0.0f;
+  for (int q = 0; q < NQ; ++q) acc[q] = 0.0f;
   for (int j = tid; j < dim; j += nt) {
     const float pj = re[j] * re[j] + im[j] * im[j];
 #pragma unroll
-    for (int q = 0; q < kMaxNq; ++q)
+    for (int q = 0; q < NQ; ++q)
       if (q < nq && ((j >> q) & 1)) acc[q] += pj;
   }
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
-  for (int q = 0; q < kMaxNq; ++q) {
+  for (int q = 0; q < NQ; ++q) {
     float v = acc[q];
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
@@ -563,7 +576,55 @@ frame_smem_kernel(const float* __restrict__ theta,
   if (tid < nq) {
     float v = 0.0f;
     for (int w = 0; w < (nt + 31) / 32; ++w) v += partial[w][tid];
-    out[row * nq + tid] = v;
+    out_row[tid] = v;
+  }
+}
+
+// nq 11-13: one block a row, the row in shared memory.
+__global__ void __launch_bounds__(kMaxThreads)
+frame_smem_kernel(const float* __restrict__ theta,
+                  const int4* __restrict__ plan, float* __restrict__ out,
+                  int nq, int n_ops, int n_rot) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float partial[kMaxThreads / 32][kMaxSmemNq];
+  int4* ops = reinterpret_cast<int4*>(smem_raw);          // [n_ops]
+  float* re = reinterpret_cast<float*>(ops + n_ops);      // [dim]
+  const int dim = 1 << nq;
+  float* im = re + dim;                                   // [dim]
+  float* cs = im + dim;                                   // [n_rot][cos, sin]
+  const long long row = blockIdx.x;
+
+  for (int i = threadIdx.x; i < n_ops; i += blockDim.x) ops[i] = plan[i];
+  block_row_start(theta + row * n_rot, n_rot, cs, re, im, dim);
+  block_row_ops(ops, n_ops, cs, re, im, nq);
+  block_row_marginals<kMaxSmemNq>(re, im, nq, partial, out + row * nq);
+}
+
+// nq 14-30: persistent blocks, each with its own slot of `scratch`
+// ([gridDim.x][2][dim] f32) for the re/im planes of the row it runs; a
+// slot is 2^(nq+3) bytes (128 KB at nq = 14), so the slots of the whole
+// grid stay in L2 at nq 14 and stream through device memory above it.
+__global__ void __launch_bounds__(kGlobalThreads)
+frame_global_kernel(const float* __restrict__ theta,
+                    const int4* __restrict__ plan, float* __restrict__ out,
+                    float* scratch, long long rows, int nq, int n_ops,
+                    int n_rot) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float partial[kGlobalThreads / 32][kMaxNq];
+  int4* ops = reinterpret_cast<int4*>(smem_raw);          // [n_ops]
+  float* cs = reinterpret_cast<float*>(ops + n_ops);      // [n_rot][cos, sin]
+  const size_t dim = static_cast<size_t>(1) << nq;
+  float* re = scratch + 2 * dim * blockIdx.x;
+  float* im = re + dim;
+
+  for (int i = threadIdx.x; i < n_ops; i += blockDim.x) ops[i] = plan[i];
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    // the barrier of block_row_start also ends the last row's reads of
+    // cs, re/im and partial
+    block_row_start(theta + row * n_rot, n_rot, cs, re, im,
+                    static_cast<int>(dim));
+    block_row_ops(ops, n_ops, cs, re, im, nq);
+    block_row_marginals<kMaxNq>(re, im, nq, partial, out + row * nq);
   }
 }
 
@@ -610,12 +671,15 @@ int launch_warp(const float* theta, const int4* plan, float* out,
 
 // Launch on `stream`: theta [rows, n_rot] f32, plan [n_ops, 4] int32
 // (16-byte aligned), out [rows, nq] f32, all on the device and contiguous;
-// 1 <= nq <= 13, rows >= 1, n_rot >= 1. nq <= 10: persistent blocks of 4
+// 1 <= nq <= 30, rows >= 1, n_rot >= 1. nq <= 10: persistent blocks of 4
 // warps, a row in a warp's registers; nq 11-13: one block a row,
-// min(2^(nq-1), 256) threads. Returns the CUDA error of the launch (0 on
-// success).
+// min(2^(nq-1), 256) threads, the row in shared memory; nq 14-30: `slots`
+// persistent blocks of 512 threads, each row in the block's slot of
+// `scratch` (slots * 2 * 2^nq f32 on the device; unread below nq 14).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int evolve_frame_marginals_launch(const void* theta,
                                              const void* plan, void* out,
+                                             void* scratch, long long slots,
                                              long long rows, int nq,
                                              int n_ops, int n_rot,
                                              void* stream) {
@@ -635,15 +699,30 @@ extern "C" int evolve_frame_marginals_launch(const void* theta,
   if (nq <= kMaxWarpNq) {
     return launch_warp<5>(th, pl, o, rows, nq, n_ops, n_rot, s);
   }
+  const size_t tables = 16 * static_cast<size_t>(n_ops) +
+                        8 * static_cast<size_t>(n_rot);
+  cudaError_t err;
+  if (nq > kMaxSmemNq) {
+    if (scratch == nullptr || slots < 1 || slots > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(frame_global_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(tables));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long grid = slots < rows ? slots : rows;
+    frame_global_kernel<<<static_cast<unsigned int>(grid), kGlobalThreads,
+                          tables, s>>>(th, pl, o,
+                                       static_cast<float*>(scratch), rows,
+                                       nq, n_ops, n_rot);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int half = 1 << (nq - 1);
   const int threads = half < 32 ? 32 : (half > kMaxThreads ? kMaxThreads
                                                            : half);
-  const size_t smem = 16 * static_cast<size_t>(n_ops) +
-                      4 * (2 * (static_cast<size_t>(1) << nq) +
-                           2 * static_cast<size_t>(n_rot));
-  cudaError_t err = cudaFuncSetAttribute(
-      frame_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const size_t smem = tables + 8 * (static_cast<size_t>(1) << nq);
+  err = cudaFuncSetAttribute(frame_smem_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   frame_smem_kernel<<<static_cast<unsigned int>(rows), threads, smem, s>>>(
       th, pl, o, nq, n_ops, n_rot);

@@ -28,8 +28,10 @@ GATE_H, GATE_CX, GATE_CY, GATE_CZ, GATE_SWAP = 4, 5, 6, 7, 8
 ROTATION_KINDS = (ROT_Z, ROT_X, ROT_Y, ROT_ZZ)
 TWO_QUBIT_KINDS = (ROT_ZZ, GATE_CX, GATE_CY, GATE_CZ, GATE_SWAP)
 
-MAX_NQ = 13
+MAX_NQ = 30                       # the frame engine's widest row
+MAX_SMEM_NQ = 13                  # widths the kernel holds on chip
 MAX_WARP_NQ = 10                  # widths the kernel holds in registers
+_SCRATCH_BYTES = 1 << 30          # the row slots above MAX_SMEM_NQ, at most
 _MAX_SMEM_BYTES = 232448 - 1024   # per-block shared memory on sm_90, less
 #                                   the kernel's static reduction scratch
 _INV_SQRT2 = float(np.float32(1.0 / np.sqrt(2.0)))
@@ -214,9 +216,9 @@ def load_library() -> ctypes.CDLL:
     """Build (once per source version) and load ``csrc/frame_evolve.cu``."""
     lib = build_library("frame_evolve")
     fn = lib.evolve_frame_marginals_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -230,11 +232,22 @@ def _plan_tensor(plan: Plan, device: torch.device) -> torch.Tensor:
 
 def _smem_bytes(nq: int, n_ops: int, n_rot: int) -> int:
     """The least dynamic shared memory of one block: the plan (nq ≤ 10,
-    where the angle table is left out if it does not fit), or the plan,
-    the re/im planes and the cos/sin (nq 11-13)."""
+    where the angle table is left out if it does not fit), the plan and
+    the cos/sin (nq 14-30, the row in global memory), or those and the
+    re/im planes (nq 11-13)."""
     if nq <= MAX_WARP_NQ:
         return 16 * n_ops
-    return 16 * n_ops + 4 * (2 * (1 << nq) + 2 * n_rot)
+    planes = 8 * (1 << nq) if nq <= MAX_SMEM_NQ else 0
+    return 16 * n_ops + 8 * n_rot + planes
+
+
+def scratch_slots(nq: int, rows: int, sms: int) -> int:
+    """Row slots of the global-memory tier (nq > 13): one a block, at most
+    four blocks of 512 threads an SM and ``_SCRATCH_BYTES`` of slots (at
+    least one); 0 at nq ≤ 13, where no slot is read."""
+    if nq <= MAX_SMEM_NQ:
+        return 0
+    return max(1, min(rows, 4 * sms, _SCRATCH_BYTES // (8 << nq)))
 
 
 def evolve_frame_marginals(theta_eff: torch.Tensor, plan: Sequence,
@@ -246,8 +259,9 @@ def evolve_frame_marginals(theta_eff: torch.Tensor, plan: Sequence,
     broadcast (sign-folded per trajectory). With no rotation (n_rot = 0)
     the angles are one zero column, as in the JAX package. CPU tensors go
     to :func:`evolve_frame_marginals_reference`; CUDA tensors to the
-    kernel, which takes contiguous f32 angles and 1 ≤ nq ≤ 13 on an sm_90
-    card.
+    kernel, which takes contiguous f32 angles and 1 ≤ nq ≤ 30 on an sm_90
+    card (above 13 qubits each row lives in a slot of a scratch buffer in
+    device memory, :func:`scratch_slots`).
     """
     rows = theta_eff.shape[0]
     device = theta_eff.device
@@ -283,11 +297,16 @@ def evolve_frame_marginals(theta_eff: torch.Tensor, plan: Sequence,
     if rows == 0:
         return out
     plan_t = _plan_tensor(plan, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    slots = scratch_slots(nq, rows, sms)
+    scratch = torch.empty((slots, 2, 1 << nq) if slots else (0,),
+                          dtype=torch.float32, device=device)
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.evolve_frame_marginals_launch(
-            theta_eff.data_ptr(), plan_t.data_ptr(), out.data_ptr(), rows,
-            nq, len(plan), n_rot, torch.cuda.current_stream(device).cuda_stream)
+            theta_eff.data_ptr(), plan_t.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), slots, rows, nq, len(plan), n_rot,
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"evolve_frame_marginals kernel launch failed: "
                            f"CUDA error {err}")

@@ -40,13 +40,40 @@ from ..ops.density import apply_readout_confusion, dm_probabilities
 from ..ops.density_static import apply_plan, superop_plan
 from ..ops.frame_trajectory import (frame_marginals_to_z, frame_supported,
                                     frame_theta_eff)
-from ..ops.kernels.frame_evolve import (evolve_frame_marginals,
+from ..ops.kernels.frame_evolve import (MAX_SMEM_NQ, evolve_frame_marginals,
                                         evolve_frame_marginals_reference)
 from ..ops.statevector import probabilities, statevector, z_expectations
 from ..ops.trajectory import (run_trajectories_presampled,
                               twirled_noise_tables)
 
 METHODS = ("density_matrix", "trajectory", "trajectory_gather", "frame")
+
+
+def choose_noisy_engine(method: str, device_type: str, nq: int,
+                        frame_ok: bool, use_kernel: Optional[bool]
+                        ) -> Tuple[str, str]:
+    """(method, engine) a pipeline runs, chosen by width at construction.
+
+    The engines: ``"density_matrix"``, ``"trajectory_gather"``, ``"k2"``
+    (K2's wrapper: the kernel on CUDA tensors, its plain version on CPU
+    ones) and ``"k2_plain"`` (K2's plain version anywhere,
+    ``use_kernel=False``). ``"frame"`` runs K2 at every width it takes
+    (≤ 30 qubits; above ``MAX_SMEM_NQ`` = 13 the kernel keeps each row in
+    device memory). ``"trajectory"`` becomes ``"frame"`` on a CUDA device
+    for a frame-supported template where K2 keeps the row on chip
+    (≤ ``MAX_SMEM_NQ`` qubits), else ``"trajectory_gather"``.
+    ``use_kernel=True`` raises unless the engine is ``"k2"``.
+    """
+    if method == "trajectory":
+        method = ("frame" if device_type == "cuda" and frame_ok
+                  and nq <= MAX_SMEM_NQ else "trajectory_gather")
+    engine = method
+    if method == "frame":
+        engine = "k2_plain" if use_kernel is False else "k2"
+    if use_kernel and engine != "k2":
+        raise ValueError(f"use_kernel=True asks for K2, but nq={nq} with "
+                         f"this method runs {engine!r}")
+    return method, engine
 
 
 def make_ising_template(nq: int, steps: int, basis: str = "Z",
@@ -80,19 +107,22 @@ class IsingLabelPipeline:
 
     ``device`` is the torch device everything runs on. ``method``:
 
-    * ``"frame"``: Pauli-frame trajectories through kernel K2 on a CUDA
-      device, its plain version on the CPU (rotation+Clifford circuits);
+    * ``"frame"``: Pauli-frame trajectories (rotation+Clifford circuits)
+      through kernel K2 on a CUDA device, its plain version on the CPU;
     * ``"trajectory_gather"``: the gather trajectory engine (any gate set);
     * ``"trajectory"``: ``"frame"`` on a CUDA device when the template is
-      frame-supported, else ``"trajectory_gather"``;
+      frame-supported and K2 keeps its rows on chip (≤ 13 qubits), else
+      ``"trajectory_gather"``;
     * ``"density_matrix"`` (the default, as in the JAX package): the
       exact noisy density matrix of every circuit (the static superop
       engine), readout confusion, then ⟨Z⟩ or joint shots. ``n_traj``
       and ``use_kernel`` do not apply.
 
-    ``use_kernel``: None runs K2 on a CUDA device and its plain version on
-    the CPU; True asks for the kernel (CUDA only); False runs the plain
-    version anywhere.
+    ``use_kernel``: None calls K2's wrapper (the kernel on a CUDA device,
+    its plain version on the CPU); True asks for the kernel (CUDA only, and
+    only where the method runs it); False runs the plain version anywhere.
+    The read-only ``noisy_engine`` names what the noisy evolution runs
+    (:func:`choose_noisy_engine`).
     """
 
     device_model: DeviceModel
@@ -116,8 +146,6 @@ class IsingLabelPipeline:
         if self.use_kernel and self.device.type != "cuda":
             raise ValueError("use_kernel=True needs a CUDA device, got "
                              f"{self.device}")
-        self._use_kernel = (self.device.type == "cuda"
-                            if self.use_kernel is None else self.use_kernel)
         self.template = make_ising_template(self.nq, self.steps, "Z",
                                             self.dt, h=self.h)
         nm = self.noise_model or NoiseModel.from_device(self.device_model)
@@ -138,9 +166,14 @@ class IsingLabelPipeline:
                 "method='frame' needs rotations + Cliffords (gate set "
                 "{id,x,y,z,h,s,sdg,t,tdg,sx,sxdg,rx,ry,rz,p,rzz,cx,cy,cz,"
                 "swap}, <=30 qubits)")
-        if self.method == "trajectory":
-            self.method = ("frame" if self.device.type == "cuda"
-                           and supported else "trajectory_gather")
+        self.method, self._engine = choose_noisy_engine(
+            self.method, self.device.type, self.nq, supported,
+            self.use_kernel)
+
+    @property
+    def noisy_engine(self) -> str:
+        """What runs the noisy evolution (:func:`choose_noisy_engine`)."""
+        return self._engine
 
     def sample_draws(self, batch: int, generator: torch.Generator
                      ) -> torch.Tensor:
@@ -206,7 +239,7 @@ class IsingLabelPipeline:
                                                   choices)
             del choices
             mark("frame")
-            evolve = (evolve_frame_marginals if self._use_kernel
+            evolve = (evolve_frame_marginals if self._engine == "k2"
                       else evolve_frame_marginals_reference)
             p1 = evolve(theta_eff, plan, nq)
             del theta_eff

@@ -240,7 +240,7 @@ def test_engine_above_k1_width_matches_plain_path(nq, kernel, per_step,
 
 
 @pytest.mark.parametrize("nq,rows", [(1, 3), (2, 5), (5, 1000), (10, 4099),
-                                     (13, 17)])
+                                     (13, 17), (14, 600), (17, 5)])
 def test_frame_kernel_matches_reference(nq, rows, cuda_device):
     rng = np.random.default_rng(nq)
     plan, n_rot = fe.every_kind_plan(rng, nq, 148)
@@ -255,10 +255,10 @@ def test_frame_kernel_matches_reference(nq, rows, cuda_device):
     assert (got - want).abs().max().item() <= 2e-5
 
 
-# each side of the warp kernel's register / lane splits, and the
-# shared-memory kernel (nq 11, 13)
+# each side of the warp kernel's register / lane splits, the
+# shared-memory kernel (nq 11, 13) and the global-memory kernel (nq 14, 15)
 @pytest.mark.parametrize("nq,rows", [(1, 67), (4, 129), (6, 65), (10, 999),
-                                     (11, 9), (13, 5)])
+                                     (11, 9), (13, 5), (14, 3), (15, 2)])
 def test_frame_kernel_runs_every_code_path(nq, rows, cuda_device):
     """Every kind moves every qubit: each register position and the lane
     path of rx, ry, h, cx, cy and swap."""
@@ -326,7 +326,7 @@ def test_frame_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         fe.evolve_frame_marginals(torch.zeros((2, 4), device=cuda_device).t(),
                                   plan, 2)
     with pytest.raises(ValueError, match="nq"):
-        fe.evolve_frame_marginals(theta, plan, 14)
+        fe.evolve_frame_marginals(theta, plan, fe.MAX_NQ + 1)
     with pytest.raises(ValueError, match="unknown plan kind"):
         fe.evolve_frame_marginals(theta, ((12, 0, 1, -1),), 2)
     with pytest.raises(ValueError, match="slot"):
@@ -349,6 +349,41 @@ def test_frame_pipeline_kernel_matches_plain_path(cuda_device):
         assert fe.evolve_frame_marginals.launches == before + use_kernel
     for got, want in zip(*out):
         assert got.shape == (8, 10)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("method, engine", [
+    ("frame", "k2"), ("trajectory", "trajectory_gather")])
+def test_frame_pipeline_above_k2_width_card_matches_cpu(method, engine,
+                                                        cuda_device,
+                                                        monkeypatch):
+    """Above K2's shared-memory width (nq 14) the pipeline picks its engine
+    at construction and runs on the card, ``"frame"`` through K2's
+    global-memory tier (one launch): card vs CPU on shared draws
+    (``shots=None``) ≤ 1e-5."""
+    import mlqem_tpu_torch.ops.sampling as t_sampling
+
+    nq, B, T = 14, 4, 4
+    J = np.random.default_rng(3).uniform(0.05, 0.6, size=B)
+    out = []
+    for d in (cuda_device, "cpu"):
+        pipe = IsingLabelPipeline(configurable_device(nq, seed=0), nq=nq,
+                                  steps=2, device=d, shots=None,
+                                  method=method, n_traj=T)
+        assert pipe.noisy_engine == engine
+        rng = np.random.default_rng(5)
+        draws = rng.integers(0, 16, size=(B, T, pipe.ct_struct.max_ops))
+        draws[rng.random(draws.shape) < 0.7] = 0
+        monkeypatch.setattr(
+            t_sampling, "sample_small_categorical",
+            lambda probs, shape, gen, _d=draws, _dev=pipe.device:
+            torch.as_tensor(_d.astype(np.int32), device=_dev))
+        before = fe.evolve_frame_marginals.launches
+        out.append(pipe.generate(J, seed=0))
+        assert fe.evolve_frame_marginals.launches == before + (
+            engine == "k2" and pipe.device.type == "cuda")
+    for got, want in zip(*out):
+        assert got.shape == (B, nq)
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 

@@ -134,3 +134,55 @@ def test_stage_marks_in_order():
     assert seen == ["frame", "evolve", "readout", "ideal"]
     assert ideal.shape == noisy.shape == (2, 4)
     assert torch.isfinite(noisy).all() and (noisy.abs() <= 1).all()
+
+
+@pytest.mark.parametrize("nq", [10, 13, 14, 20])
+def test_frame_pipeline_picks_the_engine_for_its_width(nq, monkeypatch):
+    """``method="frame"`` calls K2's wrapper at every width (on the CPU the
+    wrapper runs its plain version, so the calls are counted here in place
+    of the card's launches); ``"trajectory"`` runs the frame engine on a
+    CUDA device only where K2 keeps its rows on chip (≤ 13 qubits), and
+    ``use_kernel=True`` raises at construction wherever the engine is not
+    K2."""
+    import mlqem_tpu_torch.parallel.datagen as dg
+
+    calls = {}
+    for name in ("evolve_frame_marginals", "evolve_frame_marginals_reference",
+                 "run_trajectories_presampled"):
+        def counted(*a, _fn=getattr(dg, name), _name=name):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a)
+        monkeypatch.setattr(dg, name, counted)
+    kw = dict(nq=nq, steps=1, device="cpu", shots=None, n_traj=1)
+    pipe = IsingLabelPipeline(configurable_device(nq, seed=0),
+                              method="frame", **kw)
+    assert pipe.noisy_engine == "k2"
+    J = np.array([0.3], np.float32)
+    got = pipe.generate(J, seed=0)
+    assert calls == {"evolve_frame_marginals": 1}
+    gather = IsingLabelPipeline(configurable_device(nq, seed=0),
+                                method="trajectory", **kw)
+    assert gather.method == gather.noisy_engine == "trajectory_gather"
+    if nq <= 14:
+        # the gather engine on the same seed (the same draws) agrees
+        for a, b in zip(got, gather.generate(J, seed=0)):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    else:
+        assert all(np.isfinite(a).all() and a.shape == (1, nq) for a in got)
+    cuda_pick = dg.choose_noisy_engine("trajectory", "cuda", nq, True, None)
+    assert cuda_pick == (("frame", "k2") if nq <= 13 else
+                         ("trajectory_gather", "trajectory_gather"))
+    for use_kernel in (None, True):
+        assert dg.choose_noisy_engine("frame", "cuda", nq, True,
+                                      use_kernel) == ("frame", "k2")
+    assert dg.choose_noisy_engine("frame", "cuda", nq, True, False) == (
+        "frame", "k2_plain")
+    if nq > 13:
+        with pytest.raises(ValueError, match="trajectory_gather"):
+            dg.choose_noisy_engine("trajectory", "cuda", nq, True, True)
+    else:
+        assert dg.choose_noisy_engine("trajectory", "cuda", nq, True,
+                                      True) == ("frame", "k2")
+    for method in ("trajectory_gather", "density_matrix"):
+        with pytest.raises(ValueError, match=method):
+            dg.choose_noisy_engine(method, "cuda", nq, True, True)

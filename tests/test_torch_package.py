@@ -80,7 +80,9 @@ def test_entry_points_default_to_the_card():
     bad = {k: v for k, v in found.items() if v != "cuda"}
     assert not bad, bad
     for fn in ("__init__", "scalability_sweep", "single_ising_parity",
-               "run_tableau", "truncation_convergence"):
+               "run_tableau", "truncation_convergence", "vqe_dataset",
+               "train_vqe_processor", "vqe_mitigation_study",
+               "h2_dissociation_curve", "entry"):
         assert fn in {f for _, f in found}
 
 
@@ -107,7 +109,11 @@ def test_exports():
                  "PauliPropagatorIsing", "StabilizerState",
                  "batch_expectations", "truncation_convergence", "finetune",
                  "calibration_drift", "scalability_sweep",
-                 "single_ising_parity", "paper_parity_study"):
+                 "single_ising_parity", "paper_parity_study", "VQE",
+                 "VQEResult", "exact_minimum_eigenvalue", "spsa_minimize",
+                 "load_h2_problems", "vqe_dataset", "train_vqe_processor",
+                 "vqe_mitigation_study", "h2_dissociation_curve",
+                 "PUBLISHED_H2"):
         assert hasattr(mlqem_tpu_torch, name)
     assert set(mlqem_tpu_torch.__all__) <= set(dir(mlqem_tpu_torch))
     # the state carriers from the JAX package
