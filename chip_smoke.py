@@ -143,7 +143,26 @@ Phases, each of which exits non-zero on failure:
     ``shots=None``, COBYLA 20, card vs CPU (every arm ≤ 1e-5);
 25. ``entry()``'s forward card vs CPU (≤ 1e-5) and its ms, the native
     encoder library built with the host compiler against its numpy
-    versions, a QASM round trip. No kernel runs in phases 23-25.
+    versions, a QASM round trip. No kernel runs in phases 23-25;
+26. the mesh on the card: a one-rank NCCL mesh (``make_mesh``), the kicked
+    engine at the bench configuration and the frame pipeline at 8192
+    circuits through ``generate(mesh=)``: equal to the unsharded call on
+    the same seed (≤ 1e-6 at ``shots=None``; the shots too), the same
+    launches (2 of K1, 1 of K2) with the counts set to 0 just before the
+    sharded call, and each batch's time beside the unsharded one;
+27. the amplitude-sharded statevector on the one-rank mesh at
+    ``SV_NQ`` qubits (a depth-2 Ising circuit) against ``statevector``
+    (state and ⟨Z_q⟩ ≤ 1e-5), with times and peak memory; on 8 gloo CPU
+    ranks of this machine: ``dryrun_multichip(8, device="cpu")`` and the
+    sp = 2, 4, 8 states against the one-rank state (≤ 1e-5); then
+    ``dryrun_multichip(1)`` on the card. One card, so no multi-GPU time;
+28. the artifacts and runners: demo2's artifact at its full protocol
+    (5 seeds, 120 training circuits, 10,000 shots) through the full gate
+    (``check_demo2(full=True)``), demo1's and the parity table's writers
+    at ``--fast`` (the parity table cut to ``PARITY_FAST_SEEDS`` ×
+    ``PARITY_FAST_SETTINGS``) through ``full=False``, their figures, and
+    every tutorial and demo runner at ``fast=True`` with its headline
+    and wall time.
 
 Every kernel's record holds its bound: the larger of the bytes it must move
 over 3.35 TB/s and the f32 operations it must do over 67 TFLOP/s (the
@@ -217,6 +236,17 @@ VQE_CHECK_SAMPLES = 40                 # 200 circuits card vs CPU
 H2_BONDS = [0, 1, 2, 3]                # PUBLISHED_H2's bond lengths
 H2_CHECK_BOND, H2_CHECK_MAXITER = 3, 20
 PARITY_ARMS = ("ols", "mlp", "gnn", "zne")      # the forest arm is cut
+# phases 26-28: the mesh, the sharded statevector, the artifacts
+SV_NQ = 28                             # phase 27's width on one card
+SV_CPU_NQ = 12                         # the 8 CPU ranks' width
+PARITY_FAST_SEEDS = ("0",)             # of --fast's 3 seeds, cut
+PARITY_FAST_SETTINGS = ("incoherent",)  # of 3 settings, cut
+RUNNERS = ("t01_ngem", "t02_data_generation",
+           "t03_experiments_on_lima_backend", "t04_ngem_vqe",
+           "t05_stability_over_time", "t06_scalability",
+           "t07_generalization", "a1_simulation_engines", "a2_scale_100q",
+           "a3_multichip_sharding", "z01_mlp_debug",
+           "demo1_rf_mimic_zne_100q", "demo2_ising_4q")
 # phase 3's K1 cases: (nq, rows, random start)
 K1_CASES = [(6, 4099, False), (8, 4099, False), (8, 16384, False),
             (10, 4099, False), (10, 16384, False), (1, 1001, True),
@@ -2443,12 +2473,227 @@ def host_modules_phase(card, cuda):
     phase_end("25", t0, card)
 
 
+def mesh_phase(card, cuda):
+    """Phase 26: both generators through ``generate(mesh=)`` on a one-rank
+    NCCL mesh at their bench sizes, against the unsharded call."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import (IsingLabelPipeline, KickedIsingEngine,
+                                 configurable_device)
+    from mlqem_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = phase_begin()
+    mesh = make_mesh(device=cuda)
+    print(f"mesh: {mesh} (one NCCL rank on the card; a one-rank group "
+          f"started by make_mesh)")
+    require(tuple(mesh.shape) == (1, 1), f"26: mesh shape {mesh.shape}")
+    device_model = configurable_device(NQ, seed=0)
+    rng = np.random.default_rng(26)
+    cases = (
+        ("kicked", BATCH, "evolve_fused", 2,
+         lambda shots: KickedIsingEngine(device_model, nq=NQ, steps=STEPS,
+                                         dt=DT, n_traj=N_TRAJ, shots=shots,
+                                         device=cuda)),
+        ("frame", FRAME_BATCH, "evolve_frame_marginals", 1,
+         lambda shots: IsingLabelPipeline(device_model, nq=NQ, steps=STEPS,
+                                          dt=DT, h=1.0, n_traj=N_TRAJ,
+                                          method="frame", shots=shots,
+                                          device=cuda)))
+    for name, batch, kernel, n_launch, make in cases:
+        J = rng.uniform(0.05, 0.6, size=batch).astype(np.float32)
+        for shots in (None, SHOTS):
+            eng = make(shots)
+            want = eng.generate(J, seed=5)
+            reset_launches()
+            got = eng.generate(J, seed=5, mesh=mesh)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            print(f"26 {name}: {batch} circuits x {N_TRAJ} trajectories, "
+                  f"shots={shots}: generate(mesh=) vs unsharded max|Δ| = "
+                  f"{err:.3e}; launches on the dp path {launches}")
+            require(err <= 1e-6, f"26: {name} sharded vs unsharded {err}")
+            require(launches[kernel] == n_launch and sum(
+                launches.values()) == n_launch,
+                f"26: {name} dp path launches {launches}")
+        times = {"unsharded": [], "mesh": []}
+        for rep in range(4):               # unsharded, mesh, mesh, unsharded
+            for key in (("unsharded", "mesh") if rep % 2 == 0
+                        else ("mesh", "unsharded")):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                eng.generate(J, seed=6 + rep,
+                             mesh=mesh if key == "mesh" else None)
+                times[key].append((time.perf_counter() - t) * 1e3)
+        med = {k: statistics.median(v[1:]) for k, v in times.items()}
+        print(f"26 {name}: batch time with the mesh {med['mesh']:.1f} ms vs "
+              f"unsharded {med['unsharded']:.1f} ms (medians after a "
+              f"warm-up; runs {[round(x, 1) for x in times['mesh']]} / "
+              f"{[round(x, 1) for x in times['unsharded']]} ms) [{card}]")
+        del eng
+        torch.cuda.empty_cache()
+    phase_end("26", t0, card)
+    return mesh
+
+
+def _z_from_state(psi, nq):
+    """⟨Z_q⟩ of a statevector, one qubit at a time (no sign table)."""
+    import torch
+
+    probs = psi.real * psi.real + psi.imag * psi.imag
+    out = []
+    for q in range(nq):
+        p = probs.reshape(-1, 2, 2 ** q).sum(dim=(0, 2), dtype=torch.float64)
+        out.append(float(p[0] - p[1]))
+    return out
+
+
+def sharded_sv_phase(card, cuda, mesh):
+    """Phase 27: the amplitude-sharded statevector on the card's one-rank
+    mesh at SV_NQ qubits against ``statevector``; on 8 gloo CPU ranks,
+    ``dryrun_multichip(8)`` and sp = 2/4/8 against one rank; then
+    ``dryrun_multichip(1)`` on the card."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch import dryrun_multichip
+    from mlqem_tpu_torch.circuits.circuit import tensorize
+    from mlqem_tpu_torch.circuits.families import (IsingModel, IsingOptions,
+                                                   random_circuit)
+    from mlqem_tpu_torch.entry import sharded_sv_runs
+    from mlqem_tpu_torch.ops.sharded_sv import (sharded_statevector_fn,
+                                                sharded_z_expectations)
+    from mlqem_tpu_torch.ops.statevector import statevector
+    from mlqem_tpu_torch.parallel.mesh import spawn
+
+    t0 = phase_begin()
+    qc = IsingModel.make_circuit(IsingOptions(nq=SV_NQ, h=1.0, J=0.3,
+                                              dt=0.5, depth=2), measure=False)
+    ct = tensorize(qc)
+    fn = sharded_statevector_fn(qc, mesh, device=cuda)
+    fn(ct.params)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    psi = fn(ct.params)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t
+    sharded_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    z = sharded_z_expectations(psi, SV_NQ, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ref = statevector(ct, device=cuda)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    err = float((psi - ref).abs().max())
+    z_err = float(np.abs(z - np.asarray(_z_from_state(ref, SV_NQ))).max())
+    del psi, ref
+    torch.cuda.empty_cache()
+    print(f"27 sharded statevector, one rank on the card: {SV_NQ} qubits "
+          f"(2^{SV_NQ} complex64 = {2 ** SV_NQ * 8 / 2 ** 30:.1f} GiB), "
+          f"depth-2 Ising, {len(qc.ops)} ops: {sharded_s:.3f} s (peak "
+          f"{sharded_peak:.2f} GiB) vs statevector {single_s:.3f} s (peak "
+          f"{single_peak:.2f} GiB); state max|Δ| = {err:.3e}, <Z_q> max|Δ| "
+          f"= {z_err:.3e} [{card}]")
+    require(err <= 1e-5 and z_err <= 1e-5, f"27: sharded sv {err} {z_err}")
+
+    t = time.perf_counter()
+    rep = dryrun_multichip(8, device="cpu")
+    print(f"27 dryrun_multichip(8, device='cpu'): 8 gloo ranks on this "
+          f"machine's CPU (not the card): {time.perf_counter() - t:.1f} s; "
+          f"errors {rep['errors']}")
+    cpu_qc = random_circuit(SV_CPU_NQ, 6, seed=27)
+    params = tensorize(cpu_qc).params
+    t = time.perf_counter()
+    out = spawn(sharded_sv_runs, 8, "cpu",
+                [(cpu_qc, sp, [params]) for sp in (2, 4, 8)], "cpu")
+    one = statevector(tensorize(cpu_qc), device="cpu").numpy()
+    errs = [float(np.abs(runs[0][0] - one).max()) for runs in out]
+    print(f"27 sharded statevector on 8 gloo CPU ranks (not the card), "
+          f"{SV_CPU_NQ} qubits, sp = 2/4/8 vs one rank: max|Δ| = "
+          f"{[f'{e:.3e}' for e in errs]} ({time.perf_counter() - t:.1f} s)")
+    require(max(errs) <= 1e-5, f"27: CPU ranks {errs}")
+    print("27: one card on this machine: no multi-GPU time exists; the "
+          "multi-rank paths ran on CPU ranks")
+    t = time.perf_counter()
+    rep = dryrun_multichip(1, device="cuda")
+    print(f"27 dryrun_multichip(1) on the card: {time.perf_counter() - t:.1f}"
+          f" s (a spawned NCCL rank); errors {rep['errors']} [{card}]")
+    phase_end("27", t0, card)
+
+
+def artifacts_phase(card, cuda):
+    """Phase 28: demo2's full artifact through the full gate, demo1's and
+    the parity table's at --fast through the structure gate, the figures,
+    and every tutorial and demo runner at fast=True."""
+    import contextlib
+    import importlib
+    import io
+
+    from mlqem_tpu_torch.workflows import figures
+    from mlqem_tpu_torch.workflows.artifacts import main as write_artifact
+
+    t0 = phase_begin()
+    out_dir = os.path.join(ROOT, "artifacts_torch", "chip_smoke")
+    runs = (
+        ("demo2 (full protocol, check_demo2(full=True))",
+         ["demo2"], ["demo2_4q_simulated.json"]),
+        ("demo1 --fast (check_demo1(full=False))", ["demo1", "--fast"],
+         ["demo1_100q_simulated.json", "demo1_100q_simulated_per_step.png",
+          "demo1_100q_simulated_per_step_vs_ideal.png"]),
+        (f"parity --fast, cut to seeds {PARITY_FAST_SEEDS} x settings "
+         f"{PARITY_FAST_SETTINGS} (check_paper_parity(full=False))",
+         ["parity", "--fast", "--seeds", *PARITY_FAST_SEEDS, "--settings",
+          *PARITY_FAST_SETTINGS],
+         ["paper_parity_table.json", "paper_parity_figure.png"]))
+    for label, argv, files in runs:
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            table = write_artifact(argv + ["--out", out_dir, "--device",
+                                           cuda.type])
+        wall = time.perf_counter() - t
+        lines = buf.getvalue().strip().splitlines()
+        print(f"28 {label}: {wall:.1f} s; " + " | ".join(
+            line for line in lines if "mean:" in line or "PUBLISHED" in line
+            or "random_forest" in line))
+        for f in files:
+            if f.endswith(".png") and not figures.available():
+                print(f"28: matplotlib is not installed on this machine: "
+                      f"{f} not drawn")
+                continue
+            path = os.path.join(out_dir, f)
+            require(os.path.getsize(path) > 0, f"28: {f} not written")
+        if argv[0] == "demo2":
+            print(f"28 demo2: mean noisy {table['rmse_noisy_mean']:.5f} -> "
+                  f"mitigated {table['rmse_mitigated_mean']:.5f} "
+                  f"({table['improvement_mean']:.3f}x; published 1.57x) "
+                  f"[{card}]")
+    for runner in RUNNERS:
+        main = importlib.import_module(
+            f"mlqem_tpu_torch.tutorials.{runner}").main
+        kwargs = ({"out_dir": os.path.join(out_dir, "z01")}
+                  if runner == "z01_mlp_debug" else {})
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(device=cuda.type, fast=True, **kwargs)
+        wall = time.perf_counter() - t
+        lines = buf.getvalue().strip().splitlines()
+        require(bool(lines), f"28: {runner} printed nothing")
+        print(f"28 runner {runner} (fast): {wall:.1f} s; {lines[-1][:140]}")
+    phase_end("28", t0, card)
+
+
 def main():
     require(os.path.isdir(os.path.join(ROOT, "mlqem_tpu_torch")),
             f"no mlqem_tpu_torch package beside {__file__}")
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     # -- 1. the card ---------------------------------------------------------
     require(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -2642,6 +2887,16 @@ def main():
     host_modules_phase(card, cuda)
     torch.cuda.synchronize()
     print(f"phases 22-25 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh = mesh_phase(card, cuda)
+    torch.cuda.empty_cache()
+    sharded_sv_phase(card, cuda, mesh)
+    torch.cuda.empty_cache()
+    artifacts_phase(card, cuda)
+    torch.cuda.synchronize()
+    print(f"phases 26-28 wall time {time.perf_counter() - t0:.1f} s [{card}]")
+    dist.destroy_process_group()                   # phase 26's one rank
 
     k1 = {"launches": launches, "max_abs_err": big_err, "ms": k_ms,
           "plain_ms": p_ms, "bound_ms": k1_bound[0], "bound_by": k1_bound[1],

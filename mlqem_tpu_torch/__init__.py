@@ -15,7 +15,14 @@ ZNE mimicry, the 20-qubit ZNE sweep, demo1 and demo2, the truncation
 audit, transfer learning and calibration drift, the Clifford scalability
 sweep and the paper-parity study), and the paper's VQE application on the
 learning Estimator (the H2 problem set, ``VQE``, the ansatz dataset, the
-forest processor and the H2 dissociation curve). It mirrors the JAX
+forest processor and the H2 dissociation curve). The parallelism layer is
+``torch.distributed``: a (dp, sp) ``DeviceMesh`` (``parallel/mesh.py``),
+the ``mesh=`` branch of both label generators, the amplitude-sharded
+statevector (``ops/sharded_sv.py``) and ``dryrun_multichip``; the
+artifact writers with their schema gates (``workflows/artifacts.py``,
+``workflows/schemas.py``), the figures and the runners of the JAX
+package's tutorial and demo scripts (``tutorials/``) sit on top. It
+mirrors the JAX
 package's module paths and imports neither JAX nor ``mlqem_tpu``. Every
 entry point runs on ``device="cuda"`` unless the caller asks for the CPU.
 
@@ -68,6 +75,10 @@ Quick start::
     parity = single_ising_parity("incoherent", device="cuda")
 
     rows = h2_dissociation_curve(get_device("fake_lima"), device="cuda")
+
+    mesh = make_mesh(device="cuda")       # one rank a card
+    ideal, noisy = eng.generate(J_values, seed=0, mesh=mesh)
+    dryrun_multichip(8, device="cpu")      # 8 gloo ranks on the host
 """
 
 from .apps.chemistry import load_h2_problems
@@ -79,6 +90,7 @@ from .data.loaders import ExpValDataset
 from .device.model import DeviceModel
 from .device.noise import NoiseModel, add_coherent_cx_noise
 from .device.registry import configurable_device, get_device
+from .entry import dryrun_multichip
 from .exceptions import MLQEMException
 from .metrics import Problem, Trial, improvement_factor, rmse
 from .mitigation.learning import (EmptyProcessor, ModelProcessor,
@@ -98,11 +110,13 @@ from .models.train import predict, train_gnn, train_mlp, train_model
 from .ops.kicked_ising import KickedIsingEngine
 from .ops.lightcone import LightconeIsing
 from .ops.pauli_prop import PauliPropagatorIsing
+from .ops.sharded_sv import sharded_statevector_fn, sharded_z_expectations
 from .ops.stabilizer import (StabilizerState, batch_expectations,
                              clifford_inverse_circuit,
                              construct_random_clifford,
                              force_nonzero_expectation)
 from .parallel.datagen import IsingLabelPipeline, make_ising_template
+from .parallel.mesh import make_mesh, pad_to_multiple, spawn
 from .primitives.estimator import (BaseEstimator, CountsBackend,
                                    EstimatorResult, IdealEstimator, Job,
                                    NoisyEstimator)
@@ -122,6 +136,7 @@ from .workflows.mitigate import (encode_dataset, graph_encode_dataset,
                                  zne_batch)
 from .workflows.paper_parity import (PUBLISHED, paper_parity_study,
                                      single_ising_parity)
+from .workflows.schemas import check_demo1, check_demo2, check_paper_parity
 from .workflows.transfer import (calibration_drift, calibration_snapshots,
                                  device_at_time, finetune, scalability_sweep)
 from .workflows.vqe_study import (PUBLISHED_H2, h2_dissociation_curve,
@@ -143,20 +158,24 @@ __all__ = ["BaseEstimator", "Circuit", "CountsBackend", "DeviceModel",
            "StabilizerState", "TorchModelProcessor", "TrajectoryEstimator",
            "Trial", "VQE", "VQEResult", "ZNEEstimator", "ZNEProcessor",
            "ZNEStrategy", "add_coherent_cx_noise", "batch_expectations",
-           "calibration_drift", "calibration_snapshots",
-           "clifford_inverse_circuit", "configurable_device",
+           "calibration_drift", "calibration_snapshots", "check_demo1",
+           "check_demo2", "check_paper_parity", "clifford_inverse_circuit", "configurable_device",
            "construct_random_clifford", "dataset_imbalance",
            "demo1_zne_mimic_100q", "demo2_ising_4q", "device_at_time",
+           "dryrun_multichip",
            "encode_dataset", "exact_minimum_eigenvalue", "finetune",
            "force_nonzero_expectation", "generalization_study",
            "generate_exp_val_dataset", "get_device", "graph_encode_dataset",
            "h2_dissociation_curve", "improvement_factor", "ising_dataset",
            "ising_step_sweep", "learning", "lightcone_crosscheck",
-           "load_h2_problems", "make_ising_template", "mbl_dataset",
-           "model_comparison", "ngem", "noise_setting", "paper_parity_study",
+           "load_h2_problems", "make_ising_template", "make_mesh",
+           "mbl_dataset",
+           "model_comparison", "ngem", "noise_setting", "pad_to_multiple",
+           "paper_parity_study",
            "predict", "random_circuit_dataset", "rmse",
            "sample_twirled_circuits", "scalability_sweep",
-           "single_ising_parity", "spsa_minimize", "stack_circuits",
+           "sharded_statevector_fn", "sharded_z_expectations",
+           "single_ising_parity", "spawn", "spsa_minimize", "stack_circuits",
            "tensorize", "tiling_dataset", "tomography_sweep", "train_gnn",
            "train_gnn_mbl", "train_gnn_mitigation", "train_gnn_on_dataset",
            "train_mitigation_model", "train_mlp", "train_model",

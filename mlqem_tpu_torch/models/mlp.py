@@ -22,6 +22,13 @@ fresh init trains alike:
 * :class:`Dropout` — draws its mask from ``generator`` when one is set
   (``models.train.train_model`` sets its own).
 
+Under data parallelism (:func:`shard_batch_layers`) a rank holds a block
+of the batch's rows: :class:`BatchNorm` then takes the statistics of the
+whole batch (its sums all-reduced over the group, as ``jit`` over a
+sharded batch does in flax), and :class:`Dropout` draws the whole batch's
+mask and keeps the rank's rows, so a data-parallel step equals the
+one-rank step.
+
 Submodules carry flax's names (``Dense_0``, ``BatchNorm_1``, ``MLP3_0``, …)
 and :class:`BatchNorm` flax's leaf names (``scale``, ``bias``, ``mean``,
 ``var``), so a flax variables tree maps onto a ``state_dict`` path by path.
@@ -29,7 +36,7 @@ and :class:`BatchNorm` flax's leaf names (``scale``, ``bias``, ``mean``,
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -64,6 +71,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        # the process group whose ranks hold the batch's rows, or None
+        self.group = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -75,9 +84,18 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             flat = x.reshape(-1, x.shape[-1])
-            mean = flat.mean(0)
+            if self.group is None:
+                mean, sq = flat.mean(0), (flat * flat).mean(0)
+            else:
+                from ..parallel.mesh import all_reduce_sum
+
+                F = flat.shape[-1]
+                sums = all_reduce_sum(torch.cat([
+                    flat.sum(0), (flat * flat).sum(0),
+                    flat.new_full((1,), flat.shape[0])]), self.group)
+                mean, sq = sums[:F] / sums[-1], sums[F:2 * F] / sums[-1]
             # flax's fast variance: E[x²] − E[x]², clipped at 0
-            var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(
                     (1.0 - self.momentum) * mean)
@@ -97,15 +115,36 @@ class Dropout(nn.Module):
         super().__init__()
         self.p = p
         self.generator: Optional[torch.Generator] = None
+        # (the whole batch's rows, this rank's row indices), or None
+        self.rows: Optional[Tuple[int, torch.Tensor]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         if self.p >= 1.0:
             return torch.zeros_like(x)
-        keep = torch.rand(x.shape, device=x.device,
-                          generator=self.generator) >= self.p
+        if self.rows is None:
+            keep = torch.rand(x.shape, device=x.device,
+                              generator=self.generator) >= self.p
+        else:
+            n, rows = self.rows
+            keep = torch.rand((n,) + x.shape[1:], device=x.device,
+                              generator=self.generator)[rows] >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def shard_batch_layers(model: nn.Module, group, n: int,
+                       rows: torch.Tensor) -> nn.Module:
+    """Make ``model``'s :class:`BatchNorm` and :class:`Dropout` layers see
+    the whole batch of ``n`` rows, of which this rank holds ``rows`` (a
+    batch-first model): the statistics are all-reduced over ``group`` and
+    each dropout mask is drawn for all n rows. ``group=None`` undoes it."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+        elif isinstance(m, Dropout):
+            m.rows = None if group is None else (n, rows)
+    return model
 
 
 def init_params(model: nn.Module, generator: Optional[torch.Generator] = None

@@ -20,8 +20,9 @@ The stages of :meth:`KickedIsingEngine.run`:
 sample_draws`) and propagate the frames (:meth:`~KickedIsingEngine.
 frame_signs`), as int32 bit operations over all trajectories at once;
 (c) the evolution (:meth:`~KickedIsingEngine.evolve`);
-(d) readout confusion, ⟨Z⟩, the frame flip and binomial shots
-(:meth:`~KickedIsingEngine.noisy_labels`).
+(d) readout confusion, ⟨Z⟩ and the frame flip (:meth:`~KickedIsingEngine.
+trajectory_z`), then binomial shots (:meth:`~KickedIsingEngine.
+shot_labels`).
 Stage (a), the noise tables, is built once in the constructor.
 """
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from ..device.model import DeviceModel
 from ..device.noise import NoiseModel
+from ..parallel.mesh import gather_rows, shard_rows
 from . import sampling
 from .density import apply_readout_confusion
 from .kernels import evolve as k_evolve
@@ -401,15 +403,21 @@ class KickedIsingEngine:
     # ------------------------------------------------------------------
     # (d) readout, ⟨Z⟩, frame flip, shots
     # ------------------------------------------------------------------
-    def noisy_labels(self, probs: torch.Tensor, flip: torch.Tensor,
-                     generator: torch.Generator) -> torch.Tensor:
-        """Noisy ⟨Z_q⟩ [B, nq] from the trajectories' probabilities."""
+    def trajectory_z(self, probs: torch.Tensor, flip: torch.Tensor
+                     ) -> torch.Tensor:
+        """Each trajectory's ⟨Z_q⟩ [B, n_traj, nq]: readout confusion on
+        the probabilities, ⟨Z⟩, then the frame flip."""
         if self.tables.confusion is not None:
             probs = apply_readout_confusion(probs, self.tables.confusion,
                                             self.nq)
         check_ieee_matmul(probs)
         z = (probs @ self._neg_bit_pm) * flip
-        z = z.reshape(-1, self.n_traj, self.nq)
+        return z.reshape(-1, self.n_traj, self.nq)
+
+    def shot_labels(self, z: torch.Tensor, generator: torch.Generator
+                    ) -> torch.Tensor:
+        """Noisy ⟨Z_q⟩ [B, nq] from the trajectories' [B, n_traj, nq]:
+        their mean, or binomial shots split over them."""
         if self.shots is None:
             return z.mean(dim=1)
         shots_per_traj = max(1, self.shots // self.n_traj)
@@ -420,43 +428,66 @@ class KickedIsingEngine:
 
     # ------------------------------------------------------------------
     def run(self, J: torch.Tensor, generator: torch.Generator,
-            mark: Optional[Callable[[str], None]] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            mark: Optional[Callable[[str], None]] = None,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ideal, noisy) ⟨Z_q⟩ [B, nq] for couplings J [B] on the device.
 
         ``mark``, if given, is called with a stage's name as each stage
         has been enqueued ("frame", "evolve", "readout", "ideal"), so a
         caller can time the stages.
+
+        ``mesh`` (:func:`~..parallel.mesh.make_mesh`) shards the batch over
+        its dp ranks: every rank draws the whole batch's noise from
+        ``generator`` and keeps its rows (:func:`~..parallel.mesh.
+        shard_rows`), evolves them, and the trajectories' ⟨Z⟩ and the
+        ideal labels are all-gathered before the shots, which are drawn
+        for the whole batch. So every rank returns what the unsharded
+        call returns, shots included.
         """
         mark = mark or (lambda stage: None)
-        B = J.shape[0]
+        B, T = J.shape[0], self.n_traj
         theta_h = 2.0 * self.h * self.dt
+        draws = self.sample_draws(B * T, generator)
+        if mesh is not None:
+            rows = shard_rows(B, mesh).to(J.device)
+            J = J[rows]
+            draws = draws[:, (rows[:, None] * T + torch.arange(
+                T, device=J.device)).reshape(-1)]
+
+        def gather(x):
+            return x if mesh is None else gather_rows(x, mesh, B)
+
         theta_j = (-2.0 * self.dt) * J.to(torch.float32)
-        draws = self.sample_draws(B * self.n_traj, generator)
         kick, bond, flip = self.frame_signs(draws)
         del draws
         mark("frame")
-        probs = self.evolve(theta_h, theta_j.repeat_interleave(self.n_traj),
-                            kick, bond)
+        probs = self.evolve(theta_h, theta_j.repeat_interleave(T), kick,
+                            bond)
         del kick, bond
         mark("evolve")
-        noisy = self.noisy_labels(probs, flip, generator)
+        z = gather(self.trajectory_z(probs, flip))
         del probs
+        noisy = self.shot_labels(z, generator)
         mark("readout")
         # ideal labels: the same evolution with every sign +1, one row per
         # circuit
         probs = self.evolve(theta_h, theta_j)
         check_ieee_matmul(probs)
-        ideal = probs @ self._neg_bit_pm
+        ideal = gather(probs @ self._neg_bit_pm)
         mark("ideal")
         return ideal, noisy
 
-    def generate(self, J_values: np.ndarray, seed: int = 0
+    def generate(self, J_values: np.ndarray, seed: int = 0, mesh=None
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """(ideal, noisy) per-qubit ⟨Z⟩ as numpy [B, nq]; noise from seed."""
+        """(ideal, noisy) per-qubit ⟨Z⟩ as numpy [B, nq]; noise from seed.
+
+        With ``mesh`` the batch is sharded over its dp ranks and every rank
+        returns the whole batch's labels, equal to the unsharded call's
+        (:meth:`run`).
+        """
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         J = torch.as_tensor(np.asarray(J_values, np.float32),
                             device=self.device)
-        ideal, noisy = self.run(J, generator)
+        ideal, noisy = self.run(J, generator, mesh=mesh)
         return ideal.cpu().numpy(), noisy.cpu().numpy()

@@ -45,6 +45,7 @@ from ..ops.kernels.frame_evolve import (MAX_SMEM_NQ, evolve_frame_marginals,
 from ..ops.statevector import probabilities, statevector, z_expectations
 from ..ops.trajectory import (run_trajectories_presampled,
                               twirled_noise_tables)
+from .mesh import gather_rows, shard_rows
 
 METHODS = ("density_matrix", "trajectory", "trajectory_gather", "frame")
 
@@ -184,8 +185,8 @@ class IsingLabelPipeline:
             (batch, self.n_traj, self.ct_struct.max_ops), generator)
 
     def run(self, params: torch.Tensor, generator: torch.Generator,
-            mark: Optional[Callable[[str], None]] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            mark: Optional[Callable[[str], None]] = None,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ideal, noisy) ⟨Z_q⟩ [B, nq] for template values params [B, P]
         on the device.
 
@@ -193,24 +194,44 @@ class IsingLabelPipeline:
         has been enqueued ("frame", "evolve", "readout", "ideal"; for
         ``density_matrix`` "frame" closes the superop plan and "evolve"
         the sweep), so a caller can time the stages.
+
+        ``mesh`` (:func:`~.mesh.make_mesh`) shards the batch over its dp
+        ranks: every rank draws the whole batch's Paulis from
+        ``generator`` and keeps its rows (:func:`~.mesh.shard_rows`), and
+        what the shots read (each trajectory's ⟨Z⟩, or the exact outcome
+        distribution) and the ideal labels are all-gathered before the
+        shots, which are drawn for the whole batch. So every rank returns
+        what the unsharded call returns, shots included.
         """
         mark = mark or (lambda stage: None)
-        ct = self.template.bind(params)             # params [B, L, 3]
+        B = params.shape[0]
+        choices = (None if self.method == "density_matrix"
+                   else self.sample_draws(B, generator))
+        if mesh is not None:
+            rows = shard_rows(B, mesh).to(params.device)
+            params = params[rows]
+            choices = None if choices is None else choices[rows]
+
+        def gather(x):
+            return x if mesh is None else gather_rows(x, mesh, B)
+
+        ct = self.template.bind(params)             # params [b, L, 3]
         if self.method == "density_matrix":
-            noisy = self._noisy_density(ct.params, generator, mark)
+            probs = gather(self._density_probs(ct.params, mark))
+            noisy = self._density_shots(probs, generator)
         else:
-            noisy = self._noisy_trajectories(ct.params, generator, mark)
+            z_traj = gather(self._trajectory_z(ct.params, choices, mark))
+            noisy = self._trajectory_shots(z_traj, generator)
         mark("readout")
-        ideal = z_expectations(probabilities(statevector(ct)), self.nq)
+        ideal = gather(z_expectations(probabilities(statevector(ct)),
+                                      self.nq))
         mark("ideal")
         return ideal, noisy
 
-    def _noisy_density(self, params: torch.Tensor,
-                       generator: torch.Generator,
+    def _density_probs(self, params: torch.Tensor,
                        mark: Callable[[str], None]) -> torch.Tensor:
-        """Noisy ⟨Z_q⟩ [B, nq] from exact density matrices: the superop
-        plan, the sweep, readout confusion on the outcome distribution,
-        then ⟨Z⟩ (``shots=None``) or joint shots read bit by bit."""
+        """The noisy outcome distributions [B, 2^nq] from exact density
+        matrices: the superop plan, the sweep, readout confusion."""
         nq = self.nq
         plan = superop_plan(self.ct_struct, params, self._keys, self._table)
         mark("frame")
@@ -220,19 +241,23 @@ class IsingLabelPipeline:
         mark("evolve")
         if self.tables.confusion is not None:
             probs = apply_readout_confusion(probs, self.tables.confusion, nq)
+        return probs
+
+    def _density_shots(self, probs: torch.Tensor,
+                       generator: torch.Generator) -> torch.Tensor:
+        """Noisy ⟨Z_q⟩ [B, nq]: exact (``shots=None``) or joint shots read
+        bit by bit."""
         if self.shots is None:
-            return z_expectations(probs, nq)
-        return sampling.sampled_z_expectations(probs, self.shots, nq,
+            return z_expectations(probs, self.nq)
+        return sampling.sampled_z_expectations(probs, self.shots, self.nq,
                                                generator)
 
-    def _noisy_trajectories(self, params: torch.Tensor,
-                            generator: torch.Generator,
-                            mark: Callable[[str], None]) -> torch.Tensor:
-        """Noisy ⟨Z_q⟩ [B, nq] from Pauli-twirled trajectories (the frame
-        and gather methods), with binomial shots."""
+    def _trajectory_z(self, params: torch.Tensor, choices: torch.Tensor,
+                      mark: Callable[[str], None]) -> torch.Tensor:
+        """Each Pauli-twirled trajectory's ⟨Z_q⟩ [B, T, nq] (the frame and
+        gather methods), readout confusion included."""
         nq, T = self.nq, self.n_traj
         B = params.shape[0]
-        choices = self.sample_draws(B, generator)
         confusion = self.tables.confusion
         if self.method == "frame":
             theta_eff, fx, plan = frame_theta_eff(self.ct_struct, params,
@@ -244,24 +269,27 @@ class IsingLabelPipeline:
             p1 = evolve(theta_eff, plan, nq)
             del theta_eff
             mark("evolve")
-            z_traj = frame_marginals_to_z(p1.reshape(B, T, nq), fx,
-                                          confusion)
-        else:
-            mark("frame")
-            states = run_trajectories_presampled(self.ct_struct, params,
-                                                 choices, nq)
-            del choices
-            probs = probabilities(states)
-            del states
-            mark("evolve")
-            if confusion is not None:
-                probs = apply_readout_confusion(probs, confusion, nq)
-            z_traj = z_expectations(probs, nq)      # [B, T, nq]
+            return frame_marginals_to_z(p1.reshape(B, T, nq), fx, confusion)
+        mark("frame")
+        states = run_trajectories_presampled(self.ct_struct, params,
+                                             choices, nq)
+        del choices
+        probs = probabilities(states)
+        del states
+        mark("evolve")
+        if confusion is not None:
+            probs = apply_readout_confusion(probs, confusion, nq)
+        return z_expectations(probs, nq)                # [B, T, nq]
+
+    def _trajectory_shots(self, z_traj: torch.Tensor,
+                          generator: torch.Generator) -> torch.Tensor:
+        """Noisy ⟨Z_q⟩ [B, nq]: the trajectories' mean, or binomial shots
+        split over them."""
         if self.shots is None:
             return z_traj.mean(dim=1)
         # the <Z_q> estimate from S joint samples is marginally
         # Binomial(S, p1_q): sample that per qubit
-        shots_per_traj = max(1, self.shots // T)
+        shots_per_traj = max(1, self.shots // self.n_traj)
         p1 = ((1.0 - z_traj) / 2.0).clamp(0.0, 1.0)
         counts = torch.binomial(
             torch.full_like(p1, float(shots_per_traj)), p1,
@@ -284,13 +312,16 @@ class IsingLabelPipeline:
         return np.stack(cols, axis=-1)
 
     def generate(self, J_values: np.ndarray,
-                 h_values: Optional[np.ndarray] = None, seed: int = 0
-                 ) -> Tuple[np.ndarray, np.ndarray]:
+                 h_values: Optional[np.ndarray] = None, seed: int = 0,
+                 mesh=None) -> Tuple[np.ndarray, np.ndarray]:
         """(ideal[B, nq], noisy[B, nq]) as numpy for a batch of Hamiltonian
-        params; the noise comes from a generator seeded with ``seed``."""
+        params; the noise comes from a generator seeded with ``seed``.
+        With ``mesh`` the batch is sharded over its dp ranks and every rank
+        returns the whole batch's labels, equal to the unsharded call's
+        (:meth:`run`)."""
         params = self.params_from_values(J_values, h_values)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         ideal, noisy = self.run(torch.as_tensor(params, device=self.device),
-                                generator)
+                                generator, mesh=mesh)
         return ideal.cpu().numpy(), noisy.cpu().numpy()

@@ -709,3 +709,44 @@ def test_tableau_card_matches_cpu(cuda_device):
         np.testing.assert_array_equal(
             batch_expectations(circuits, obs, device=cuda_device),
             batch_expectations(circuits, obs, device="cpu"))
+
+
+def test_one_rank_mesh_on_the_card_matches_unsharded(cuda_device):
+    """A one-rank NCCL mesh: both generators' ``generate(mesh=)`` equal
+    the unsharded call (K1 and K2 launched on the dp path), and the
+    sharded statevector equals ``statevector``."""
+    import torch.distributed as dist
+
+    from mlqem_tpu_torch.circuits.circuit import tensorize
+    from mlqem_tpu_torch.circuits.families import random_circuit
+    from mlqem_tpu_torch.ops.sharded_sv import sharded_statevector_fn
+    from mlqem_tpu_torch.ops.statevector import statevector
+    from mlqem_tpu_torch.parallel.mesh import make_mesh
+
+    started = not dist.is_initialized()
+    try:
+        mesh = make_mesh(device="cuda")
+        dev = configurable_device(6, seed=0)
+        J = np.linspace(0.1, 0.5, 64).astype(np.float32)
+        for eng, kernel in (
+                (KickedIsingEngine(dev, nq=6, steps=2, dt=0.5, n_traj=8,
+                                   shots=None, device=cuda_device),
+                 kev.evolve_fused),
+                (IsingLabelPipeline(dev, nq=6, steps=2, dt=0.5, shots=None,
+                                    method="frame", n_traj=8,
+                                    device=cuda_device),
+                 fe.evolve_frame_marginals)):
+            want = eng.generate(J, seed=3)
+            before = kernel.launches
+            got = eng.generate(J, seed=3, mesh=mesh)
+            assert kernel.launches > before
+            for g, w in zip(got, want):
+                assert np.abs(g - w).max() <= 1e-6
+        qc = random_circuit(12, 6, seed=5)
+        ct = tensorize(qc)
+        psi = sharded_statevector_fn(qc, mesh, device="cuda")(ct.params)
+        ref = statevector(ct, device=cuda_device)
+        assert (psi - ref).abs().max().item() <= 1e-5
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

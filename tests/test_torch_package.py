@@ -82,7 +82,10 @@ def test_entry_points_default_to_the_card():
     for fn in ("__init__", "scalability_sweep", "single_ising_parity",
                "run_tableau", "truncation_convergence", "vqe_dataset",
                "train_vqe_processor", "vqe_mitigation_study",
-               "h2_dissociation_curve", "entry"):
+               "h2_dissociation_curve", "entry", "make_mesh",
+               "sharded_statevector_fn", "dryrun_multichip",
+               "mesh_label_runs", "sharded_sv_runs", "write_demo1",
+               "write_demo2", "write_paper_parity"):
         assert fn in {f for _, f in found}
 
 
@@ -113,7 +116,10 @@ def test_exports():
                  "VQEResult", "exact_minimum_eigenvalue", "spsa_minimize",
                  "load_h2_problems", "vqe_dataset", "train_vqe_processor",
                  "vqe_mitigation_study", "h2_dissociation_curve",
-                 "PUBLISHED_H2"):
+                 "PUBLISHED_H2", "make_mesh", "pad_to_multiple", "spawn",
+                 "sharded_statevector_fn", "sharded_z_expectations",
+                 "dryrun_multichip", "check_demo1", "check_demo2",
+                 "check_paper_parity"):
         assert hasattr(mlqem_tpu_torch, name)
     assert set(mlqem_tpu_torch.__all__) <= set(dir(mlqem_tpu_torch))
     # the state carriers from the JAX package
