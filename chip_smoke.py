@@ -2,14 +2,20 @@
 """Drive the PyTorch port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k2-tiers PARENT_FRAME_EVOLVE_CU
+
+The second form runs phases 1-2 and then only K2's tier timings of phase
+22, each in turns with the build of PARENT_FRAME_EVOLVE_CU (a copy of
+``csrc/frame_evolve.cu`` from before its tiers above 10 qubits were
+redesigned, whose C entry point takes no pass records).
 
 Phases, each of which exits non-zero on failure:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the float32 matmul settings, which must be IEEE f32 (no TF32);
 2. build the four kernels at once from ``mlqem_tpu_torch/csrc/``:
    ``evolve.cu`` (K1), ``frame_evolve.cu`` (K2), ``fused_step.cu`` (K3) and
-   ``wht.cu`` (K4), one ``nvcc`` each; every instance of K1 and K3 (both
-   from ``kicked_regs.cuh``) must show 0 bytes of register spills;
+   ``wht.cu`` (K4), one ``nvcc`` each; every instance of K1, K2 and K3
+   must show 0 bytes of register spills;
 3. hold K1 (``csrc/evolve.cu``) against its plain PyTorch version on the
    card from |0…0⟩ (nq 6, 8, 10) and from random unit-norm states (nq 1,
    4, 5, 6, 10, 11, 13: each side of the kernel's register, shuffle and
@@ -27,10 +33,13 @@ Phases, each of which exits non-zero on failure:
 5. time whole batches (pairs/min), the stages, and peak device memory;
 6. hold K2 against its plain PyTorch version (max|Δ| ≤ 2e-5) on random
    plans of every op kind and on plans that move every qubit with every
-   kind (nq 1, 2, 4, 5, 6, 10, 11, 13: every register position and the
-   lane path of the warp kernel, and the shared-memory kernel; ragged row
-   counts), and on the bench template's plan (nq 10, 4 steps: 148 ops,
-   which the wrapper merges to 76) at 16,384 and 262,144 rows, and time
+   kind (nq 1, 2, 4, 5, 6, 10: every register position and the lane path
+   of the warp tier; nq 11-14, the chip tier; nq 15, 16, 18, 20, the pass
+   tier; ragged row counts; above 10 qubits also the Ising template's
+   plan), and on the bench template's plan (nq 10, 4 steps: 148 ops,
+   which the wrapper merges to 76) at 16,384 and 262,144 rows: its
+   outputs at nq 10 equal, bit for bit, to those of the build before the
+   tiers above 10 qubits were redesigned (a SHA-256 of them); and time
    both at the frame pipeline's shape (262,144 rows);
 7. run the generic Pauli-frame label pipeline at ``bench.py --method
    frame``'s configuration (``IsingLabelPipeline(method="frame")``: 8192
@@ -122,13 +131,15 @@ Phases, each of which exits non-zero on failure:
     noisy RMSE within 10% of the published 0.172, every arm beside the
     published one. Each phase 20-21 step prints its wall time and peak
     device memory;
-22. ``IsingLabelPipeline`` above K2's shared-memory width (nq 14, 2
-    steps): ``"frame"`` (K2 with each row in device memory, one launch)
-    and ``"trajectory"`` (the gather engine, no launch) card vs CPU on
+22. ``IsingLabelPipeline`` at nq 14 (2 steps): ``"frame"`` and
+    ``"trajectory"`` (K2's chip tier, one launch) and
+    ``"trajectory_gather"`` (the gather engine, no launch) card vs CPU on
     shared draws (``shots=None``, ≤ 1e-5), the engine each took
     (``noisy_engine``), a timed batch; K2 against its plain version at the
     timed batch's shape, with both times and the bound; at nq 13
-    ``"frame"`` still launches K2 once;
+    ``"frame"`` still launches K2 once; K2 on the Ising template at nq 11,
+    12, 13, 14 (chip tier), 16 and 20 (pass tier): max|Δ| ≤ 2e-5, its
+    time, passes and relayouts beside the plain version's and the bound;
 23. ``vqe_dataset`` at the reference's size (fake_lima, 5 Paulis × 5000
     ansatz draws, 10,000 shots): seconds split into the Estimators and the
     host transpile + encode, peak memory; a 200-circuit slice card vs CPU
@@ -189,6 +200,15 @@ FRAME_BATCH = 8192                    # bench.py's default for --method frame
 FRAME_ROWS = FRAME_BATCH * N_TRAJ
 K2_CHECK_ROWS = 16384                 # the bench plan's check against plain
 K2_TOL = 2e-5
+# SHA-256 of K2's nq-10 output on the bench plan (theta from
+# default_rng(10), uniform(-3, 3), K2_CHECK_ROWS rows) from the build
+# before the tiers above 10 qubits were redesigned: the warp tier unchanged
+K2_DIGEST = ("2b0e33b318b9a27ca8f24c9bcb18fe75"
+             "519d3e52c3b0c2fc03f1c6bb73b88ea8")
+# phase 22's K2 timings at each tier's widths (the Ising template, 2 steps):
+# 2^27 amplitudes a call on chip, 2^28 and 2^27 in the pass tier
+K2_TIER_ROWS = ((11, 65536), (12, 32768), (13, 16384), (14, 8192),
+                (16, 2048), (20, 128))
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM, published
 F32_FLOPS_PER_S = 67e12               # H100 SXM, f32 outside the tensor cores
 # the light-cone path: demo1 (make_demo1_artifact.py) and its cross-check
@@ -435,6 +455,137 @@ def plan_flops(plan, nq):
                       else per_kind.get(op[0], 0) for op in plan) + 3 + nq)
 
 
+def ising_plan(nq, steps=2):
+    """(plan, angle slots) of the Ising template at nq (dt 0.25, h 1)."""
+    import numpy as np
+
+    from mlqem_tpu_torch.ops.frame_trajectory import frame_plan
+    from mlqem_tpu_torch.parallel.datagen import make_ising_template
+
+    tpl = make_ising_template(nq, steps, "Z", 0.25, h=1.0)
+    plan, meta = frame_plan(tpl.bind_host(
+        np.zeros(tpl.num_parameters, np.float32)))
+    return plan, len(meta)
+
+
+def k2_tier(plan, nq, n_rot):
+    """How K2 runs a plan at nq: its tier, passes and relayouts."""
+    import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+
+    if nq <= kfe.MAX_WARP_NQ:
+        return " (warp tier)"
+    sched = kfe.frame_schedule(kfe.check_plan(plan, nq, n_rot), nq)
+    where = "on chip" if nq <= kfe.MAX_SMEM_NQ else "device memory"
+    return (f" ({where}: {len(sched.passes)} pass"
+            f"{'es' if len(sched.passes) > 1 else ''}, "
+            f"{sched.relayouts} relayouts)")
+
+
+def parent_k2(source):
+    """K2's launch from the build of ``source``, a copy of
+    ``csrc/frame_evolve.cu`` as it was before the tiers above 10 qubits
+    were redesigned (its C entry point without pass records): a function
+    (theta, plan, nq) -> out, on the current stream."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+    from mlqem_tpu_torch.utils import build
+
+    source = os.path.abspath(source)
+    lib = build._build(
+        build._hashed_path("frame_evolve_parent", [source], build.NVCC_FLAGS),
+        [build.find_nvcc(), *build.NVCC_FLAGS, source], timeout=600)
+    fn = lib.evolve_frame_marginals_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(theta, plan, nq):
+        rows, n_rot = theta.shape
+        plan = kfe.fuse_plan(kfe.check_plan(plan, nq, n_rot))
+        sms = torch.cuda.get_device_properties(
+            theta.device).multi_processor_count
+        slots = (0 if nq <= 13 else
+                 max(1, min(rows, 4 * sms, (1 << 30) // (8 << nq))))
+        out = torch.empty((rows, nq), device=theta.device)
+        ops = torch.as_tensor(np.asarray(plan, np.int32).reshape(-1, 4),
+                              device=theta.device)
+        scratch = torch.empty((slots, 2, 1 << nq) if slots else (0,),
+                              device=theta.device)
+        err = fn(theta.data_ptr(), ops.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), slots, rows, nq, len(plan), n_rot,
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"the parent's K2 launch failed: CUDA error {err}")
+        return out
+
+    return run
+
+
+def k2_tier_times(card, cuda, parent=None):
+    """K2 on the Ising template (2 steps) at each tier's widths
+    (``K2_TIER_ROWS``) against its plain version: max|Δ| ≤ K2_TOL, the
+    kernel's time (and, with ``parent``, the parent build's, in turns:
+    parent, change, change, parent), the plain version's, the bound."""
+    import numpy as np
+    import torch
+
+    import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+
+    rng = np.random.default_rng(22)
+    for nq, rows in K2_TIER_ROWS:
+        plan, n_rot = ising_plan(nq)
+        theta = torch.as_tensor(rng.uniform(-3, 3, size=(rows, n_rot)),
+                                dtype=torch.float32, device=cuda)
+        got = kfe.evolve_frame_marginals(theta, plan, nq)
+        want = kfe.evolve_frame_marginals_reference(theta, plan, nq)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        del got, want
+        require(err <= K2_TOL, f"K2 at nq={nq} on the Ising template "
+                f"disagrees with its plain version: {err}")
+
+        def run_kernel():
+            kfe.evolve_frame_marginals(theta, plan, nq)
+
+        def run_plain():
+            kfe.evolve_frame_marginals_reference(theta, plan, nq)
+
+        k_ms, p_ms, kernel_ms, plain_ms = time_kernel_and_plain(
+            run_kernel, run_plain, 1)
+        line = ""
+        if parent is not None:
+            parent_err = (parent(theta, plan, nq) - kfe.evolve_frame_marginals(
+                theta, plan, nq)).abs().max().item()
+
+            def run_parent():
+                parent(theta, plan, nq)
+
+            run_parent()
+            par_ms, ch_ms = [time_ms(run_parent, 5)], []
+            ch_ms += [time_ms(run_kernel, 5), time_ms(run_kernel, 5)]
+            par_ms.append(time_ms(run_parent, 5))
+            line = (f"; in turns: parent {par_ms[0]:.3f}, change "
+                    f"{ch_ms[0]:.3f}, change {ch_ms[1]:.3f}, parent "
+                    f"{par_ms[1]:.3f} ms (parent vs change max|Δ| "
+                    f"{parent_err:.3e})")
+        fused = kfe.fuse_plan(kfe.check_plan(plan, nq, n_rot))
+        k2_bound = bound(4 * theta.numel() + 4 * rows * nq + 16 * len(fused),
+                         rows * plan_flops(fused, nq))
+        print(f"  K2 tier nq={nq} rows={rows} ops={len(plan)} (run as "
+              f"{len(fused)}){k2_tier(plan, nq, n_rot)}: max|Δ|={err:.3e}; "
+              f"kernel {k_ms:.3f} ms (runs "
+              f"{[round(x, 3) for x in kernel_ms]}), plain PyTorch "
+              f"{p_ms:.3f} ms (runs {[round(x, 3) for x in plain_ms]}); "
+              f"bound {k2_bound[0]:.3f} ms ({k2_bound[1]}), "
+              f"{k_ms / k2_bound[0]:.1f}x{line} [{card}]")
+        del theta
+        torch.cuda.empty_cache()
+
+
 def exact_states(J, nq, steps, dt, h=1.0):
     """Independent check: the Trotter circuit's states by complex128
     statevector simulation (RX(2h·dt) on every qubit, gate by gate, then
@@ -487,12 +638,15 @@ def frame_phases(card, cuda, device_model):
     # -- 6. K2 vs its plain version --------------------------------------------
     rng = np.random.default_rng(6)
     for nq, rows in [(1, 999), (2, 1001), (4, 4097), (5, 4099), (6, 2053),
-                     (10, 3001), (11, 129), (13, 257), (14, 600), (16, 9)]:
-        for label, (plan, n_rot) in (
-                ("random plan of every kind",
-                 kfe.every_kind_plan(rng, nq, 148)),
-                ("every qubit moved by every kind",
-                 kfe.every_path_plan(rng, nq))):
+                     (10, 3001), (11, 129), (12, 67), (13, 257), (14, 600),
+                     (15, 5), (16, 9), (18, 3), (20, 2)]:
+        plans = [("random plan of every kind",
+                  kfe.every_kind_plan(rng, nq, 148)),
+                 ("every qubit moved by every kind",
+                  kfe.every_path_plan(rng, nq))]
+        if nq > kfe.MAX_WARP_NQ:
+            plans.append(("the Ising template, 2 steps", ising_plan(nq)))
+        for label, (plan, n_rot) in plans:
             theta = torch.as_tensor(rng.uniform(-3, 3, size=(rows, n_rot)),
                                     dtype=torch.float32, device=cuda)
             got = kfe.evolve_frame_marginals(theta, plan, nq)
@@ -500,7 +654,8 @@ def frame_phases(card, cuda, device_model):
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             print(f"K2 vs plain: {label}, nq={nq} rows={rows} "
-                  f"ops={len(plan)} max|Δ|={err:.3e}")
+                  f"ops={len(plan)}{k2_tier(plan, nq, n_rot)} "
+                  f"max|Δ|={err:.3e}")
             require(err <= K2_TOL, f"K2 disagrees with its plain version "
                     f"(nq={nq}, rows={rows}, {label}): {err} > {K2_TOL}")
 
@@ -544,6 +699,15 @@ def frame_phases(card, cuda, device_model):
     print(f"K2 vs plain: bench template plan, rows={theta.shape[0]} "
           f"max|Δ|={err:.3e}")
     require(err <= K2_TOL, f"K2 disagrees on the bench plan: {err}")
+    theta = torch.as_tensor(np.random.default_rng(10).uniform(
+        -3, 3, size=(K2_CHECK_ROWS, len(rot_meta))), dtype=torch.float32,
+        device=cuda)
+    digest = hashlib.sha256(kfe.evolve_frame_marginals(
+        theta, plan, NQ).cpu().numpy().tobytes()).hexdigest()
+    print(f"K2 at nq={NQ} on the bench plan: SHA-256 {digest} (before the "
+          f"redesign of the tiers above 10 qubits: {K2_DIGEST})")
+    require(digest == K2_DIGEST, "K2's warp tier (nq <= 10) changed its "
+            "outputs")
 
     theta = bench_theta(FRAME_BATCH, seed=2)
     got = kfe.evolve_frame_marginals(theta, plan, NQ)
@@ -2170,11 +2334,12 @@ def stabilizer_phase(card, cuda):
 
 
 def wide_frame_phase(card, cuda):
-    """Phase 22: IsingLabelPipeline above K2's shared-memory width (nq 14):
-    the engine each method takes, card vs CPU on shared draws, one K2
-    launch for "frame" (the global-memory tier); K2 against its plain
-    version at the timed batch's shape; at nq 13 the frame method still
-    runs K2."""
+    """Phase 22: IsingLabelPipeline at nq 14: the engine each method takes
+    ("frame" and "trajectory" K2 on the card, the gather engine by its
+    name), card vs CPU on shared draws, one K2 launch for K2's engine (the
+    chip tier); K2 against its plain version at the timed batch's shape;
+    at nq 13 the frame method still runs K2; K2's times at each tier's
+    widths (:func:`k2_tier_times`)."""
     import numpy as np
     import torch
 
@@ -2187,15 +2352,21 @@ def wide_frame_phase(card, cuda):
     dev = configurable_device(nq, seed=0)
     rng = np.random.default_rng(22)
     J = rng.uniform(0.05, 0.6, size=B).astype(np.float32)
-    engines = {"frame": "k2", "trajectory": "trajectory_gather"}
-    for method, engine in engines.items():
+    # (engine on the card, on the CPU): "trajectory" takes K2 on the card at
+    # every width, as the JAX package does on its accelerator; the gather
+    # engine by its name
+    gather = "trajectory_gather"
+    engines = {"frame": ("k2", "k2"), "trajectory": ("k2", gather),
+               gather: (gather, gather)}
+    for method, (engine, cpu_engine) in engines.items():
         out, draws = {}, None
         for d in (cuda, "cpu"):
             pipe = IsingLabelPipeline(dev, nq=nq, steps=2, device=d,
                                       shots=None, method=method, n_traj=T)
-            require(pipe.noisy_engine == engine,
-                    f"22: method={method!r} at nq={nq} took "
-                    f"{pipe.noisy_engine!r}, not {engine!r}")
+            want = engine if d is cuda else cpu_engine
+            require(pipe.noisy_engine == want,
+                    f"22: method={method!r} at nq={nq} on {d} took "
+                    f"{pipe.noisy_engine!r}, not {want!r}")
             if draws is None:
                 # mostly identity, plus a share of uniform Paulis on every op
                 draws = rng.integers(0, 16, size=(
@@ -2207,7 +2378,7 @@ def wide_frame_phase(card, cuda):
             out[str(d)] = pipe.generate(J, seed=0)
             torch.cuda.synchronize()
             launches = read_launches()
-            k2 = int(engine == "k2" and pipe.device.type == "cuda")
+            k2 = int(pipe.noisy_engine == "k2" and pipe.device.type == "cuda")
             print(f"  {method!r} on {d}: launches {launches}")
             require(launches == {**{k: 0 for k in launches},
                                  "evolve_frame_marginals": k2},
@@ -2220,6 +2391,8 @@ def wide_frame_phase(card, cuda):
               f"mean |noisy - ideal| "
               f"{float(np.abs(out['cpu'][1] - out['cpu'][0]).mean()):.4f}")
         require(err <= TOL, f"22: {method} card vs CPU {err}")
+        if method == "trajectory":
+            continue                        # the same engine as "frame"
         pipe = IsingLabelPipeline(dev, nq=nq, steps=2, device=cuda,
                                   method=method, n_traj=N_TRAJ)
         Jt = rng.uniform(0.05, 0.6, size=WIDE_FRAME_TIME_B)
@@ -2231,8 +2404,7 @@ def wide_frame_phase(card, cuda):
               f"[{card}]")
         if engine != "k2":
             continue
-        # K2's global-memory tier at this batch's shape, against its plain
-        # version
+        # K2's chip tier at this batch's shape, against its plain version
         gen = torch.Generator(device=cuda)
         gen.manual_seed(3)
         ct = pipe.template.bind(torch.as_tensor(
@@ -2253,11 +2425,9 @@ def wide_frame_phase(card, cuda):
         rows = theta.shape[0]
         k2_bound = bound(4 * theta.numel() + 4 * rows * nq + 16 * len(fused),
                          rows * plan_flops(fused, nq))
-        slots = kfe.scratch_slots(nq, rows, torch.cuda.get_device_properties(
-            cuda).multi_processor_count)
-        print(f"  evolve_frame_marginals nq={nq} (row in device memory, "
-              f"{slots} slots of {8 << nq} B) ops={len(plan)} (run as "
-              f"{len(fused)}) rows={rows}: max|Δ|={k2_err:.3e}; kernel "
+        print(f"  evolve_frame_marginals nq={nq} ops={len(plan)} (run as "
+              f"{len(fused)}){k2_tier(plan, nq, theta.shape[1])} "
+              f"rows={rows}: max|Δ|={k2_err:.3e}; kernel "
               f"{k_ms:.3f} ms (runs {[round(x, 3) for x in kernel_ms]}), "
               f"plain PyTorch {p_ms:.3f} ms (runs "
               f"{[round(x, 3) for x in plain_ms]}); bound "
@@ -2273,6 +2443,7 @@ def wide_frame_phase(card, cuda):
     print(f"IsingLabelPipeline(nq=13, method='frame') -> engine "
           f"{pipe.noisy_engine!r}: {k2} K2 launch")
     require(pipe.noisy_engine == "k2" and k2 == 1, "22: nq 13 left K2")
+    k2_tier_times(card, cuda)
     phase_end("22", t0, card)
 
 
@@ -2741,11 +2912,17 @@ def main():
                     if "spill stores" in line:
                         spills.append("0 bytes spill stores, 0 bytes spill "
                                       "loads" in line)
-        if name in ("evolve", "fused_step"):
+        if name in ("evolve", "frame_evolve", "fused_step"):
             require(spills and all(spills), f"{name}.cu spills registers "
                     f"({spills.count(False)} of {len(spills)} functions)")
         print(f"  {name}.cu: {spills.count(True)} of {len(spills)} functions "
               f"without register spills")
+    if sys.argv[1:2] == ["--k2-tiers"]:
+        require(len(sys.argv) == 3, "usage: chip_smoke.py --k2-tiers "
+                "PARENT_FRAME_EVOLVE_CU")
+        k2_tier_times(card, cuda, parent=parent_k2(sys.argv[2]))
+        print(card)
+        return
 
     # -- 3. kernel vs plain version -------------------------------------------
     digest = hashlib.sha256()

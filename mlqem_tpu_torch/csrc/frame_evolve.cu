@@ -44,23 +44,41 @@
 //   the lanes instead, to the same values.
 // - P(1): each lane sums partials over its register bits, and its own
 //   total for each lane bit; one warp-shuffle reduction gives [nq] a row.
-// For nq 11-13 the kernel keeps a row in shared memory: one block a row,
-// one barrier an op. (Bits 10-12 would lie across warps and need a block
-// exchange wherever an op moves them; the bench never runs those widths.)
-// For nq 14-30 (the frame engine's widest rows; 14 qubits is the Ising
-// pipeline's first width past shared memory) the same block loop runs on a
-// row in global memory: persistent blocks of 512 threads, each with a slot
-// of a scratch buffer that the wrapper allocates, one barrier an op. At
-// nq = 14 the grid's slots (128 KB each) stay mostly in L2; each op reads
-// and writes the whole row there.
+// For nq 11-30 a block of 16 warps holds 2^14 amplitudes in registers, in
+// the warp tier's layout: 32 a plane a thread, position bits 0-4 in the
+// register index, 5-9 across the lanes, 10-13 across the warps. Each qubit
+// has a position, chosen on the host by a schedule (ops/kernels/
+// frame_evolve.py::frame_schedule, cached per plan and width) that cuts the
+// merged plan into segments under one qubit -> position map each:
+// - every op that moves a bit (rx, ry, h; the target of cx, cy) finds it in
+//   a register or lane position and runs on the warp tier's six code paths
+//   (moving_op); diagonal ops and controls are sign or predicate words at
+//   any position; a swap trades two qubits' positions on the host and
+//   moves no data;
+// - between segments a relayout trades register qubits for warp qubits:
+//   one padded (conflict-free) transpose through a 66 KB shared buffer,
+//   a plane at a time, 4 barriers. The Ising template runs ~1.5
+//   relayouts a Trotter step in place of a barrier an op.
+// nq 11-14 (the chip tier): a block holds 2^(14-nq) whole rows, from |0>
+// to P(1) (the positions mapped back to qubits) in one launch.
+// nq 15-30 (the pass tier): a row stays in a slot of a device-memory
+// scratch buffer; each pass of the schedule is a launch over (rows of a
+// group x 2^(nq-14) chunks): a block loads the 2^14 amplitudes under the
+// pass's 14 on-chip qubits, runs the pass, stores them back. The lanes
+// always hold storage bits 0-4, so every warp load and store is one
+// 128-byte run. Off-chip diagonals and controls are per-block constants.
+// The last pass writes each chunk's P(1) partials, a second kernel sums
+// them over the chunks in order. A row moves through device memory once a
+// pass, not once an op.
 // The wrapper merges each cx(a, b) rz(b) cx(a, b) of a plan with no op on a
 // or b between them into rzz(a, b), exactly (ops/kernels/frame_evolve.py::
 // fuse_plan): the bench's 148 ops run as 76.
 // Arithmetic is f32 throughout with full-precision sincosf (no fast math).
 // Left for later: the lane path's shuffles carry most of what is left at
 // nq=10 (half of the bench's rx move a lane bit); runs of ops on disjoint
-// bits could share one pass over the registers; nq 11-13 in registers;
-// nq >= 14 in a thread-block cluster's distributed shared memory.
+// bits could share one pass over the registers; nq 15-18 in a thread-block
+// cluster's distributed shared memory, in place of passes over device
+// memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,17 +86,18 @@
 namespace {
 
 constexpr int kMaxNq = 30;
-constexpr int kMaxSmemNq = 13;        // widths with a row in shared memory
 constexpr int kMaxWarpNq = 10;        // widths that the warp kernel takes
-constexpr int kMaxThreads = 256;      // a block of the shared-memory tier
-constexpr int kGlobalThreads = 512;   // a block of the global-memory tier
 constexpr int kWarps = 4;             // warps a block of the warp kernel
+constexpr int kMaxSmemNq = 14;        // positions a block of 16 warps holds
+constexpr int kChipThreads = 512;
+constexpr int kHeader = 4;            // int4 records of a pass's two maps
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr size_t kMaxSmem = 232448;   // per block on sm_90
 
 enum OpKind : int {
   ROT_Z = 0, ROT_X = 1, ROT_Y = 2, ROT_ZZ = 3,
-  GATE_H = 4, GATE_CX = 5, GATE_CY = 6, GATE_CZ = 7, GATE_SWAP = 8
+  GATE_H = 4, GATE_CX = 5, GATE_CY = 6, GATE_CZ = 7, GATE_SWAP = 8,
+  RELAYOUT = 9
 };
 
 // Bit e of kBitPattern[q] is bit q of e.
@@ -409,223 +428,266 @@ frame_warp_kernel(const float* __restrict__ theta,
 }
 
 // ---------------------------------------------------------------------------
-// nq 11-30: a row in a block, in shared memory (nq 11-13) or in a global
-// memory slot (nq 14-30)
+// nq 11-30: 2^14 amplitudes a block in registers, on positions
 // ---------------------------------------------------------------------------
 
-// Index of the p-th amplitude whose bit q is 0.
-__device__ __forceinline__ int insert_zero(int p, int q) {
-  return ((p >> q) << (q + 1)) | (p & ((1 << q) - 1));
+// Shared-memory address of on-chip index j: a word of padding every 32,
+// so that a warp's 32 lanes (bits 5-9) hit 32 banks, and a thread's 32
+// amplitudes p0 | e lie at one base plus e.
+__device__ __forceinline__ int padded(int j) { return j + (j >> 5); }
+constexpr int kBufWords = (1 << kMaxSmemNq) + (1 << (kMaxSmemNq - 5));
+
+// v, as the compiler sees it, changes here, after the memory accesses
+// before it: what depends on it is computed after them, not hoisted.
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v) : : "memory");
+  return v;
 }
 
-// The row's cos/sin(theta/2) into cs and |0...0> into re/im; one barrier.
-__device__ __forceinline__ void block_row_start(const float* th, int n_rot,
-                                                float* cs, float* re,
-                                                float* im, int dim) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < n_rot; i += nt) {
-    float s, c;
-    sincosf(0.5f * th[i], &s, &c);
-    cs[2 * i] = c;
-    cs[2 * i + 1] = s;
+// Position p's source in a relayout packed as (lo, hi), 4 bits a position.
+__device__ __forceinline__ int relayout_src(int lo, int hi, int p) {
+  return (p < 7 ? lo >> (4 * p) : hi >> (4 * (p - 7))) & 15;
+}
+
+// One plane of the schedule's relayout (lo, hi) on the block's 2^14
+// amplitudes: the amplitude at new on-chip index p0 | e (p0 = tid << 5)
+// takes the one at the old index whose bit src(p) is bit p. The lanes keep
+// their positions, so both sides of the exchange are free of bank
+// conflicts.
+__device__ __forceinline__ void relayout_plane(float (&v)[32], float* buf,
+                                               int lo, int hi) {
+  const int p0 = threadIdx.x << 5;
+  int src_base = 0;
+#pragma unroll
+  for (int p = 5; p < kMaxSmemNq; ++p) {
+    if ((p0 >> p) & 1) src_base |= 1 << relayout_src(lo, hi, p);
   }
-  for (int j = tid; j < dim; j += nt) {
-    re[j] = (j == 0) ? 1.0f : 0.0f;
-    im[j] = 0.0f;
+  __syncthreads();                  // the buffer's last reads are done
+  float* row = buf + padded(p0);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) row[e] = v[e];
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    int j = src_base;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      if ((e >> k) & 1) j ^= 1 << relayout_src(lo, hi, k);
+    }
+    v[e] = buf[padded(j)];
+  }
+}
+
+// Load (kStore false) or store a block's chunk of its slot of `scratch`
+// ([slots][2^nq] (re, im) pairs): position index base | e lies at storage
+// index st_base | st[k] for the bits k of e, store[p] the storage bit of
+// position p. The lanes hold storage bits 0-4: a warp's 32 accesses of one
+// e are one 256-byte run. 8 amplitudes a group, each group's addresses
+// computed after the last group's accesses: 8 live 64-bit addresses, not
+// 32. Computed again at each end, so that none of it stays live across the
+// op loop.
+template <bool kStore>
+__device__ __forceinline__ void chunk_io(float (&re)[32], float (&im)[32],
+                                         float* scratch,
+                                         const unsigned char* store, int nq,
+                                         int base, long long slot) {
+  float2* row = reinterpret_cast<float2*>(scratch) + (slot << nq);
+  int st_base = 0, st[5];
+  for (int p = 5; p < nq; ++p) {
+    if ((base >> p) & 1) st_base |= 1 << store[p];
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) st[k] = 1 << store[k];
+#pragma unroll
+  for (int g = 0; g < 32; g += 8) {
+    const int group_base = opaque(st_base);
+#pragma unroll
+    for (int e = g; e < g + 8; ++e) {
+      int j = group_base;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        if ((e >> k) & 1) j |= st[k];
+      }
+      if (kStore) {
+        row[j] = make_float2(re[e], im[e]);
+      } else {
+        const float2 v = row[j];
+        re[e] = v.x;
+        im[e] = v.y;
+      }
+    }
+  }
+}
+
+// One launch of the chip tier (nq 11-14: whole rows, 2^(14-nq) a block,
+// load = 0, finish = 1, out [rows, nq]) or one pass of the pass tier (nq
+// 15-30: block b runs chunk b mod 2^(nq-14) of slot b >> (nq-14) of
+// `scratch` ([slots][2^nq] (re, im) pairs), row row0 + slot; load: read
+// the chunk, else start at |0>; finish: write P(1) partials to out
+// [slots][chunks][nq], else store the chunk). prog: the pass's storage
+// bit of each position (32 bytes), its qubit of each position at the end
+// (32 bytes), n_ops ops on positions. Angles: slots [slot_lo, slot_lo +
+// n_slots) of theta.
+__global__ void __launch_bounds__(kChipThreads, 1)
+frame_chip_kernel(const float* __restrict__ theta,
+                  const int4* __restrict__ prog, float* __restrict__ out,
+                  float* scratch, long long rows, long long row0, int nq,
+                  int n_ops, int n_rot, int slot_lo, int n_slots, int load,
+                  int finish) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float part[kChipThreads / 32][11];
+  float* buf = reinterpret_cast<float*>(smem_raw);         // [kBufWords]
+  int4* ops = reinterpret_cast<int4*>(buf + kBufWords);    // [4 + n_ops]
+  const unsigned char* store = reinterpret_cast<unsigned char*>(ops);
+  const unsigned char* qubit_at = store + 32;
+  const int4* plan = ops + kHeader;
+  float2* table = reinterpret_cast<float2*>(ops + kHeader + n_ops);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p0 = threadIdx.x << 5;              // on-chip index less e
+  const bool wide = nq > kMaxSmemNq;
+  const int chip = wide ? kMaxSmemNq : nq;      // positions on chip
+  const int cbits = nq - chip;                  // chunk bits (pass tier)
+  const int rpb = 1 << (kMaxSmemNq - chip);     // rows a block
+  const int chunk = blockIdx.x & ((1 << cbits) - 1);
+  // the block's slot (pass tier) or first row (chip tier)
+  const int first = wide ? blockIdx.x >> cbits : blockIdx.x * rpb;
+  const int rib = p0 >> chip;                   // this thread's row in block
+  // this thread's position index less e (the chunk's bits above 13)
+  const int base = (chunk << kMaxSmemNq) | (p0 & ((1 << chip) - 1));
+
+  for (int i = threadIdx.x; i < kHeader + n_ops; i += blockDim.x) {
+    ops[i] = prog[i];
+  }
+  for (int i = threadIdx.x; i < rpb * n_slots; i += blockDim.x) {
+    const int r = i / n_slots;
+    long long rr = row0 + first + r;
+    if (rr >= rows) rr = rows - 1;
+    float s, c;
+    sincosf(0.5f * theta[rr * n_rot + slot_lo + i - r * n_slots], &s, &c);
+    table[i] = make_float2(c, s);
   }
   __syncthreads();
-}
+  const float2* tab = table + rib * n_slots - slot_lo;     // by angle slot
 
-// The plan on a row held by the whole block, one barrier an op. re/im are
-// in shared or global memory: the barrier makes a block's writes to either
-// visible to the block.
-__device__ void block_row_ops(const int4* ops, int n_ops, const float* cs,
-                              float* re, float* im, int nq) {
-  const int half = 1 << (nq - 1);
-  const int tid = threadIdx.x, nt = blockDim.x;
+  float re[32], im[32];
+  if (load) {
+    chunk_io<false>(re, im, scratch, store, nq, base, first);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      re[e] = (base | e) == 0 ? 1.f : 0.f;
+      im[e] = 0.f;
+    }
+  }
+
   for (int k = 0; k < n_ops; ++k) {
-    const int4 op = ops[k];
+    const int4 op = plan[k];
     const int kind = op.x, a = op.y, b = op.z;
-    const int ma = 1 << a;
+    if (kind == RELAYOUT) {
+      relayout_plane(re, buf, a, b);
+      relayout_plane(im, buf, a, b);
+      continue;
+    }
+    float c = 1.f, s = 0.f;
+    if (kind <= ROT_ZZ) {
+      const float2 cs = tab[op.w];
+      c = cs.x;
+      s = cs.y;
+    }
     switch (kind) {
       case ROT_Z:
-      case ROT_ZZ: {  // diagonal: psi_j *= c - i s sgn(j)
-        const float c = cs[2 * op.w], s = cs[2 * op.w + 1];
-        for (int p = tid; p < half; p += nt) {
-          const int j0 = insert_zero(p, a), j1 = j0 | ma;
-          // sgn_a is +1 at j0 and -1 at j1; rzz also takes sgn_b, which
-          // is the same at both (b != a)
-          const float sv0 =
-              (kind == ROT_ZZ && ((j0 >> b) & 1)) ? -s : s;
-          const float sv1 = -sv0;
-          const float r0 = re[j0], i0 = im[j0], r1 = re[j1], i1 = im[j1];
-          re[j0] = r0 * c + i0 * sv0;
-          im[j0] = i0 * c - r0 * sv0;
-          re[j1] = r1 * c + i1 * sv1;
-          im[j1] = i1 * c - r1 * sv1;
-        }
+        diag_rot(re, im, c, s, bit_word(a, base));
         break;
-      }
-      case ROT_X: {  // [[c, -is], [-is, c]]
-        const float c = cs[2 * op.w], s = cs[2 * op.w + 1];
-        for (int p = tid; p < half; p += nt) {
-          const int j0 = insert_zero(p, a), j1 = j0 | ma;
-          const float r0 = re[j0], i0 = im[j0], r1 = re[j1], i1 = im[j1];
-          re[j0] = c * r0 + s * i1;
-          im[j0] = c * i0 - s * r1;
-          re[j1] = c * r1 + s * i0;
-          im[j1] = c * i1 - s * r0;
-        }
+      case ROT_ZZ:
+        diag_rot(re, im, c, s, bit_word(a, base) ^ bit_word(b, base));
         break;
-      }
-      case ROT_Y: {  // [[c, -s], [s, c]]
-        const float c = cs[2 * op.w], s = cs[2 * op.w + 1];
-        for (int p = tid; p < half; p += nt) {
-          const int j0 = insert_zero(p, a), j1 = j0 | ma;
-          const float r0 = re[j0], i0 = im[j0], r1 = re[j1], i1 = im[j1];
-          re[j0] = c * r0 - s * r1;
-          im[j0] = c * i0 - s * i1;
-          re[j1] = c * r1 + s * r0;
-          im[j1] = c * i1 + s * i0;
-        }
-        break;
-      }
-      case GATE_H: {
-        for (int p = tid; p < half; p += nt) {
-          const int j0 = insert_zero(p, a), j1 = j0 | ma;
-          const float r0 = re[j0], i0 = im[j0], r1 = re[j1], i1 = im[j1];
-          re[j0] = (r0 + r1) * kInvSqrt2;
-          im[j0] = (i0 + i1) * kInvSqrt2;
-          re[j1] = (r0 - r1) * kInvSqrt2;
-          im[j1] = (i0 - i1) * kInvSqrt2;
-        }
-        break;
-      }
-      case GATE_CX:
-      case GATE_CY: {  // pairs on the target b where the control a is set
-        const int mb = 1 << b;
-        for (int p = tid; p < half; p += nt) {
-          const int j0 = insert_zero(p, b), j1 = j0 | mb;
-          if (!((j0 >> a) & 1)) continue;
-          const float r0 = re[j0], i0 = im[j0], r1 = re[j1], i1 = im[j1];
-          if (kind == GATE_CX) {
-            re[j0] = r1; im[j0] = i1;
-            re[j1] = r0; im[j1] = i0;
-          } else {  // Y = [[0, -i], [i, 0]]
-            re[j0] = i1; im[j0] = -r1;
-            re[j1] = -i0; im[j1] = r0;
+      case GATE_CZ: {
+        const uint32_t both = bit_word(a, base) & bit_word(b, base);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          if ((both >> e) & 1u) {
+            re[e] = -re[e];
+            im[e] = -im[e];
           }
         }
         break;
       }
-      case GATE_CZ: {  // negate where bits a and b are both set
-        for (int p = tid; p < half; p += nt) {
-          const int j1 = insert_zero(p, a) | ma;
-          if ((j1 >> b) & 1) {
-            re[j1] = -re[j1];
-            im[j1] = -im[j1];
-          }
-        }
+      default: {  // rx, ry, h move bit a; cx, cy move b under control a
+        const bool ctl = kind >= GATE_CX;
+        moving_op<5>(kind, ctl ? b : a, re, im, c, s,
+                     ctl ? bit_word(a, base) : 0u, lane);
         break;
       }
-      case GATE_SWAP: {  // exchange (bit a = 0, bit b = 1) with its mirror
-        const int mb = 1 << b;
-        for (int p = tid; p < half; p += nt) {
-          const int j0 = insert_zero(p, a);
-          if (!((j0 >> b) & 1)) continue;
-          const int j1 = (j0 | ma) & ~mb;
-          const float r0 = re[j0], i0 = im[j0];
-          re[j0] = re[j1]; im[j0] = im[j1];
-          re[j1] = r0; im[j1] = i0;
-        }
-        break;
-      }
-      default:
-        break;
     }
-    __syncthreads();
   }
-}
 
-// The row's per-qubit P(1) into out_row: per-thread partials, warp
-// shuffles, one shared-memory pass. NQ is the tier's widest row.
-template <int NQ>
-__device__ __forceinline__ void block_row_marginals(const float* re,
-                                                    const float* im, int nq,
-                                                    float (*partial)[NQ],
-                                                    float* out_row) {
-  const int tid = threadIdx.x, nt = blockDim.x, dim = 1 << nq;
-  float acc[NQ];
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) acc[q] = 0.0f;
-  for (int j = tid; j < dim; j += nt) {
-    const float pj = re[j] * re[j] + im[j] * im[j];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q)
-      if (q < nq && ((j >> q) & 1)) acc[q] += pj;
+  if (!finish) {
+    chunk_io<true>(re, im, scratch, store, nq, base, first);
+    return;
   }
-  const int lane = tid & 31, warp = tid >> 5;
+  // P(1) of each position: register bits from this thread's partials, the
+  // others from its total; a warp sum, then a sum over a row's warps
+  float v[11];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    float v = acc[q];
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) partial[warp][q] = v;
+  for (int i = 0; i < 11; ++i) v[i] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const float pr = re[e] * re[e] + im[e] * im[e];
+    v[10] += pr;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      if ((e >> k) & 1) v[k] += pr;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k) v[5 + k] = ((lane >> k) & 1) ? v[10] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < 11; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 11; ++i) part[warp][i] = v[i];
   }
   __syncthreads();
-  if (tid < nq) {
-    float v = 0.0f;
-    for (int w = 0; w < (nt + 31) / 32; ++w) v += partial[w][tid];
-    out_row[tid] = v;
+  const int wpr = 1 << (chip - 10);             // warps a row
+  for (int i = threadIdx.x; i < rpb * nq; i += blockDim.x) {
+    const int r = i / nq, p = i - r * nq;
+    float sum = 0.f;
+    for (int j = 0; j < wpr; ++j) {
+      const float* pw = part[r * wpr + j];
+      if (p < 10) {
+        sum += pw[p];
+      } else if (p < chip) {
+        sum += ((j >> (p - 10)) & 1) ? pw[10] : 0.f;
+      } else {
+        sum += ((chunk >> (p - kMaxSmemNq)) & 1) ? pw[10] : 0.f;
+      }
+    }
+    const int q = qubit_at[p];
+    if (wide) {
+      out[((static_cast<long long>(first) << cbits) + chunk) * nq + q] = sum;
+    } else if (first + r < rows) {
+      out[(static_cast<long long>(first) + r) * nq + q] = sum;
+    }
   }
 }
 
-// nq 11-13: one block a row, the row in shared memory.
-__global__ void __launch_bounds__(kMaxThreads)
-frame_smem_kernel(const float* __restrict__ theta,
-                  const int4* __restrict__ plan, float* __restrict__ out,
-                  int nq, int n_ops, int n_rot) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float partial[kMaxThreads / 32][kMaxSmemNq];
-  int4* ops = reinterpret_cast<int4*>(smem_raw);          // [n_ops]
-  float* re = reinterpret_cast<float*>(ops + n_ops);      // [dim]
-  const int dim = 1 << nq;
-  float* im = re + dim;                                   // [dim]
-  float* cs = im + dim;                                   // [n_rot][cos, sin]
-  const long long row = blockIdx.x;
-
-  for (int i = threadIdx.x; i < n_ops; i += blockDim.x) ops[i] = plan[i];
-  block_row_start(theta + row * n_rot, n_rot, cs, re, im, dim);
-  block_row_ops(ops, n_ops, cs, re, im, nq);
-  block_row_marginals<kMaxSmemNq>(re, im, nq, partial, out + row * nq);
-}
-
-// nq 14-30: persistent blocks, each with its own slot of `scratch`
-// ([gridDim.x][2][dim] f32) for the re/im planes of the row it runs; a
-// slot is 2^(nq+3) bytes (128 KB at nq = 14), so the slots of the whole
-// grid stay in L2 at nq 14 and stream through device memory above it.
-__global__ void __launch_bounds__(kGlobalThreads)
-frame_global_kernel(const float* __restrict__ theta,
-                    const int4* __restrict__ plan, float* __restrict__ out,
-                    float* scratch, long long rows, int nq, int n_ops,
-                    int n_rot) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float partial[kGlobalThreads / 32][kMaxNq];
-  int4* ops = reinterpret_cast<int4*>(smem_raw);          // [n_ops]
-  float* cs = reinterpret_cast<float*>(ops + n_ops);      // [n_rot][cos, sin]
-  const size_t dim = static_cast<size_t>(1) << nq;
-  float* re = scratch + 2 * dim * blockIdx.x;
-  float* im = re + dim;
-
-  for (int i = threadIdx.x; i < n_ops; i += blockDim.x) ops[i] = plan[i];
-  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-    // the barrier of block_row_start also ends the last row's reads of
-    // cs, re/im and partial
-    block_row_start(theta + row * n_rot, n_rot, cs, re, im,
-                    static_cast<int>(dim));
-    block_row_ops(ops, n_ops, cs, re, im, nq);
-    block_row_marginals<kMaxNq>(re, im, nq, partial, out + row * nq);
-  }
+// The pass tier's P(1): out[r, q] = sum over the chunks c, in order, of
+// partials[r][c][q], for the n = rows x nq entries of a group.
+__global__ void frame_chunk_sum_kernel(const float* __restrict__ partials,
+                                       float* __restrict__ out, long long n,
+                                       int nq, int chunks) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= n) return;
+  const long long r = i / nq;
+  const float* p = partials + r * chunks * nq + (i - r * nq);
+  float sum = 0.f;
+  for (int c = 0; c < chunks; ++c) sum += p[static_cast<long long>(c) * nq];
+  out[i] = sum;
 }
 
 template <int RB>
@@ -667,22 +729,82 @@ int launch_warp(const float* theta, const int4* plan, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The chip and pass tiers: `passes` (host memory) holds n_passes records
+// (first int4 of the pass in prog, n_ops, slot_lo, n_slots).
+int launch_chip(const float* theta, const int4* prog, float* out,
+                float* scratch, float* partials, long long slots,
+                long long rows, int nq, int n_rot, const int* passes,
+                int n_passes, cudaStream_t stream) {
+  const bool wide = nq > kMaxSmemNq;
+  if (n_passes < 1 || (!wide && n_passes != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rpb = wide ? 1 : 1 << (kMaxSmemNq - nq);
+  size_t smem = 0;
+  for (int i = 0; i < n_passes; ++i) {
+    const int* ps = passes + 4 * i;
+    const size_t need = sizeof(float) * kBufWords +
+                        16 * static_cast<size_t>(kHeader + ps[1]) +
+                        sizeof(float2) * rpb * static_cast<size_t>(ps[3]);
+    if (need > smem) smem = need;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      frame_chip_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!wide) {
+    const int* ps = passes;
+    const long long grid = (rows + rpb - 1) / rpb;
+    frame_chip_kernel<<<static_cast<unsigned>(grid), kChipThreads, smem,
+                        stream>>>(theta, prog + ps[0], out, nullptr, rows, 0,
+                                  nq, ps[1], n_rot, ps[2], ps[3], 0, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (scratch == nullptr || partials == nullptr || slots < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = 1 << (nq - kMaxSmemNq);
+  for (long long row0 = 0; row0 < rows; row0 += slots) {
+    const long long group = rows - row0 < slots ? rows - row0 : slots;
+    for (int i = 0; i < n_passes; ++i) {
+      const int* ps = passes + 4 * i;
+      const bool last = i + 1 == n_passes;
+      frame_chip_kernel<<<static_cast<unsigned>(group * chunks),
+                          kChipThreads, smem, stream>>>(
+          theta, prog + ps[0], last ? partials : nullptr, scratch, rows,
+          row0, nq, ps[1], n_rot, ps[2], ps[3], i > 0, last);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    }
+    const long long n = group * nq;
+    frame_chunk_sum_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                             stream>>>(partials, out + row0 * nq, n, nq,
+                                       chunks);
+    if ((err = cudaGetLastError()) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  return 0;
+}
+
 }  // namespace
 
-// Launch on `stream`: theta [rows, n_rot] f32, plan [n_ops, 4] int32
-// (16-byte aligned), out [rows, nq] f32, all on the device and contiguous;
-// 1 <= nq <= 30, rows >= 1, n_rot >= 1. nq <= 10: persistent blocks of 4
-// warps, a row in a warp's registers; nq 11-13: one block a row,
-// min(2^(nq-1), 256) threads, the row in shared memory; nq 14-30: `slots`
-// persistent blocks of 512 threads, each row in the block's slot of
-// `scratch` (slots * 2 * 2^nq f32 on the device; unread below nq 14).
-// Returns the CUDA error of the launch (0 on success).
+// Launch on `stream`: theta [rows, n_rot] f32, plan int4 records (16-byte
+// aligned), out [rows, nq] f32, all on the device and contiguous;
+// 1 <= nq <= 30, rows >= 1, n_rot >= 1. nq <= 10: `plan` holds n_ops ops
+// on qubits; persistent blocks of 4 warps, a row in a warp's registers.
+// nq 11-30: `plan` holds the schedule's passes and `passes` (host memory)
+// their n_passes records; nq 11-14: one launch, 2^(14-nq) rows a block of
+// 512 threads; nq 15-30: groups of `slots` rows, each row in its slot of
+// `scratch` (slots * 2^nq (re, im) f32 pairs), a launch a pass over the
+// group's rows x 2^(nq-14) chunks, P(1) partials in `partials` (slots *
+// 2^(nq-14) * nq f32), and a launch that sums them. Returns the first CUDA
+// error of the launches (0 on success).
 extern "C" int evolve_frame_marginals_launch(const void* theta,
                                              const void* plan, void* out,
-                                             void* scratch, long long slots,
+                                             void* scratch, void* partials,
+                                             const int* passes,
+                                             long long slots,
                                              long long rows, int nq,
                                              int n_ops, int n_rot,
-                                             void* stream) {
+                                             int n_passes, void* stream) {
   if (nq < 1 || nq > kMaxNq || rows < 1 || n_rot < 1 || n_ops < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* th = static_cast<const float*>(theta);
@@ -699,32 +821,7 @@ extern "C" int evolve_frame_marginals_launch(const void* theta,
   if (nq <= kMaxWarpNq) {
     return launch_warp<5>(th, pl, o, rows, nq, n_ops, n_rot, s);
   }
-  const size_t tables = 16 * static_cast<size_t>(n_ops) +
-                        8 * static_cast<size_t>(n_rot);
-  cudaError_t err;
-  if (nq > kMaxSmemNq) {
-    if (scratch == nullptr || slots < 1 || slots > 0x7fffffffLL)
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaFuncSetAttribute(frame_global_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(tables));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long grid = slots < rows ? slots : rows;
-    frame_global_kernel<<<static_cast<unsigned int>(grid), kGlobalThreads,
-                          tables, s>>>(th, pl, o,
-                                       static_cast<float*>(scratch), rows,
-                                       nq, n_ops, n_rot);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int half = 1 << (nq - 1);
-  const int threads = half < 32 ? 32 : (half > kMaxThreads ? kMaxThreads
-                                                           : half);
-  const size_t smem = tables + 8 * (static_cast<size_t>(1) << nq);
-  err = cudaFuncSetAttribute(frame_smem_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  frame_smem_kernel<<<static_cast<unsigned int>(rows), threads, smem, s>>>(
-      th, pl, o, nq, n_ops, n_rot);
-  return static_cast<int>(cudaGetLastError());
+  return launch_chip(th, pl, o, static_cast<float*>(scratch),
+                     static_cast<float*>(partials), slots, rows, nq, n_rot,
+                     passes, n_passes, s);
 }

@@ -40,7 +40,7 @@ from ..ops.density import apply_readout_confusion, dm_probabilities
 from ..ops.density_static import apply_plan, superop_plan
 from ..ops.frame_trajectory import (frame_marginals_to_z, frame_supported,
                                     frame_theta_eff)
-from ..ops.kernels.frame_evolve import (MAX_SMEM_NQ, evolve_frame_marginals,
+from ..ops.kernels.frame_evolve import (evolve_frame_marginals,
                                         evolve_frame_marginals_reference)
 from ..ops.statevector import probabilities, statevector, z_expectations
 from ..ops.trajectory import (run_trajectories_presampled,
@@ -59,15 +59,15 @@ def choose_noisy_engine(method: str, device_type: str, nq: int,
     (K2's wrapper: the kernel on CUDA tensors, its plain version on CPU
     ones) and ``"k2_plain"`` (K2's plain version anywhere,
     ``use_kernel=False``). ``"frame"`` runs K2 at every width it takes
-    (≤ 30 qubits; above ``MAX_SMEM_NQ`` = 13 the kernel keeps each row in
-    device memory). ``"trajectory"`` becomes ``"frame"`` on a CUDA device
-    for a frame-supported template where K2 keeps the row on chip
-    (≤ ``MAX_SMEM_NQ`` qubits), else ``"trajectory_gather"``.
-    ``use_kernel=True`` raises unless the engine is ``"k2"``.
+    (≤ 30 qubits, what ``frame_ok`` says). ``"trajectory"`` becomes
+    ``"frame"`` on a CUDA device for a frame-supported template, at every
+    width, as the JAX package does on its accelerator; elsewhere
+    ``"trajectory_gather"``. ``use_kernel=True`` raises unless the engine
+    is ``"k2"``.
     """
     if method == "trajectory":
         method = ("frame" if device_type == "cuda" and frame_ok
-                  and nq <= MAX_SMEM_NQ else "trajectory_gather")
+                  else "trajectory_gather")
     engine = method
     if method == "frame":
         engine = "k2_plain" if use_kernel is False else "k2"
@@ -112,7 +112,7 @@ class IsingLabelPipeline:
       through kernel K2 on a CUDA device, its plain version on the CPU;
     * ``"trajectory_gather"``: the gather trajectory engine (any gate set);
     * ``"trajectory"``: ``"frame"`` on a CUDA device when the template is
-      frame-supported and K2 keeps its rows on chip (≤ 13 qubits), else
+      frame-supported (K2 takes every width up to 30 qubits), else
       ``"trajectory_gather"``;
     * ``"density_matrix"`` (the default, as in the JAX package): the
       exact noisy density matrix of every circuit (the static superop

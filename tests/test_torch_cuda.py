@@ -240,7 +240,9 @@ def test_engine_above_k1_width_matches_plain_path(nq, kernel, per_step,
 
 
 @pytest.mark.parametrize("nq,rows", [(1, 3), (2, 5), (5, 1000), (10, 4099),
-                                     (13, 17), (14, 600), (17, 5)])
+                                     (11, 257), (12, 131), (13, 17),
+                                     (14, 600), (15, 9), (16, 7), (17, 5),
+                                     (18, 3), (20, 2)])
 def test_frame_kernel_matches_reference(nq, rows, cuda_device):
     rng = np.random.default_rng(nq)
     plan, n_rot = fe.every_kind_plan(rng, nq, 148)
@@ -255,10 +257,11 @@ def test_frame_kernel_matches_reference(nq, rows, cuda_device):
     assert (got - want).abs().max().item() <= 2e-5
 
 
-# each side of the warp kernel's register / lane splits, the
-# shared-memory kernel (nq 11, 13) and the global-memory kernel (nq 14, 15)
+# each side of the warp tier's register / lane splits, the chip tier
+# (nq 11-14: 8 to 1 rows a block) and the pass tier (nq 15-20)
 @pytest.mark.parametrize("nq,rows", [(1, 67), (4, 129), (6, 65), (10, 999),
-                                     (11, 9), (13, 5), (14, 3), (15, 2)])
+                                     (11, 9), (12, 7), (13, 5), (14, 3),
+                                     (15, 2), (16, 3), (18, 2), (20, 1)])
 def test_frame_kernel_runs_every_code_path(nq, rows, cuda_device):
     """Every kind moves every qubit: each register position and the lane
     path of rx, ry, h, cx, cy and swap."""
@@ -266,6 +269,25 @@ def test_frame_kernel_runs_every_code_path(nq, rows, cuda_device):
     plan, n_rot = fe.every_path_plan(rng, nq)
     theta = torch.as_tensor(rng.uniform(-3, 3, size=(rows, n_rot)),
                             dtype=torch.float32, device=cuda_device)
+    before = fe.evolve_frame_marginals.launches
+    got = fe.evolve_frame_marginals(theta, plan, nq)
+    want = fe.evolve_frame_marginals_reference(theta, plan, nq)
+    torch.cuda.synchronize()
+    assert fe.evolve_frame_marginals.launches == before + 1
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("nq,rows", [(11, 33), (12, 17), (14, 9), (15, 5),
+                                     (16, 3), (20, 2)])
+def test_frame_kernel_runs_the_ising_schedule(nq, rows, cuda_device):
+    """The Ising template (2 steps) through the chip tier's relayouts and
+    the pass tier's passes, one counted launch a call."""
+    tpl = make_ising_template(nq, 2, "Z", 0.25, h=1.0)
+    plan, meta = frame_plan(tpl.bind_host(
+        np.zeros(tpl.num_parameters, np.float32)))
+    theta = torch.as_tensor(
+        np.random.default_rng(nq).uniform(-3, 3, size=(rows, len(meta))),
+        dtype=torch.float32, device=cuda_device)
     before = fe.evolve_frame_marginals.launches
     got = fe.evolve_frame_marginals(theta, plan, nq)
     want = fe.evolve_frame_marginals_reference(theta, plan, nq)
@@ -353,14 +375,15 @@ def test_frame_pipeline_kernel_matches_plain_path(cuda_device):
 
 
 @pytest.mark.parametrize("method, engine", [
-    ("frame", "k2"), ("trajectory", "trajectory_gather")])
+    ("frame", "k2"), ("trajectory", "k2"),
+    ("trajectory_gather", "trajectory_gather")])
 def test_frame_pipeline_above_k2_width_card_matches_cpu(method, engine,
                                                         cuda_device,
                                                         monkeypatch):
-    """Above K2's shared-memory width (nq 14) the pipeline picks its engine
-    at construction and runs on the card, ``"frame"`` through K2's
-    global-memory tier (one launch): card vs CPU on shared draws
-    (``shots=None``) ≤ 1e-5."""
+    """At nq 14 the pipeline picks its engine at construction and runs on
+    the card, ``"frame"`` and ``"trajectory"`` through K2's chip tier (one
+    launch), ``"trajectory_gather"`` through the gather engine: card vs
+    CPU on shared draws (``shots=None``) ≤ 1e-5."""
     import mlqem_tpu_torch.ops.sampling as t_sampling
 
     nq, B, T = 14, 4, 4
@@ -370,7 +393,9 @@ def test_frame_pipeline_above_k2_width_card_matches_cpu(method, engine,
         pipe = IsingLabelPipeline(configurable_device(nq, seed=0), nq=nq,
                                   steps=2, device=d, shots=None,
                                   method=method, n_traj=T)
-        assert pipe.noisy_engine == engine
+        assert pipe.noisy_engine == (engine if d is cuda_device else
+                                     "k2" if method == "frame" else
+                                     "trajectory_gather")
         rng = np.random.default_rng(5)
         draws = rng.integers(0, 16, size=(B, T, pipe.ct_struct.max_ops))
         draws[rng.random(draws.shape) < 0.7] = 0

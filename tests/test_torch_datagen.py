@@ -141,9 +141,9 @@ def test_frame_pipeline_picks_the_engine_for_its_width(nq, monkeypatch):
     """``method="frame"`` calls K2's wrapper at every width (on the CPU the
     wrapper runs its plain version, so the calls are counted here in place
     of the card's launches); ``"trajectory"`` runs the frame engine on a
-    CUDA device only where K2 keeps its rows on chip (≤ 13 qubits), and
-    ``use_kernel=True`` raises at construction wherever the engine is not
-    K2."""
+    CUDA device at every width K2 takes, as the JAX package does on its
+    accelerator, and the gather engine elsewhere; ``use_kernel=True``
+    raises at construction wherever the engine is not K2."""
     import mlqem_tpu_torch.parallel.datagen as dg
 
     calls = {}
@@ -170,19 +170,20 @@ def test_frame_pipeline_picks_the_engine_for_its_width(nq, monkeypatch):
     else:
         assert all(np.isfinite(a).all() and a.shape == (1, nq) for a in got)
     cuda_pick = dg.choose_noisy_engine("trajectory", "cuda", nq, True, None)
-    assert cuda_pick == (("frame", "k2") if nq <= 13 else
-                         ("trajectory_gather", "trajectory_gather"))
+    assert cuda_pick == ("frame", "k2")
+    assert dg.choose_noisy_engine("trajectory", "cuda", nq, False, None) == (
+        "trajectory_gather", "trajectory_gather")
+    assert dg.choose_noisy_engine("trajectory", "cpu", nq, True, None) == (
+        "trajectory_gather", "trajectory_gather")
     for use_kernel in (None, True):
         assert dg.choose_noisy_engine("frame", "cuda", nq, True,
                                       use_kernel) == ("frame", "k2")
     assert dg.choose_noisy_engine("frame", "cuda", nq, True, False) == (
         "frame", "k2_plain")
-    if nq > 13:
-        with pytest.raises(ValueError, match="trajectory_gather"):
-            dg.choose_noisy_engine("trajectory", "cuda", nq, True, True)
-    else:
-        assert dg.choose_noisy_engine("trajectory", "cuda", nq, True,
-                                      True) == ("frame", "k2")
+    assert dg.choose_noisy_engine("trajectory", "cuda", nq, True,
+                                  True) == ("frame", "k2")
+    with pytest.raises(ValueError, match="trajectory_gather"):
+        dg.choose_noisy_engine("trajectory", "cuda", nq, False, True)
     for method in ("trajectory_gather", "density_matrix"):
         with pytest.raises(ValueError, match=method):
             dg.choose_noisy_engine(method, "cuda", nq, True, True)
