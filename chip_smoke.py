@@ -12,9 +12,10 @@ redesigned, whose C entry point takes no pass records).
 Phases, each of which exits non-zero on failure:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the float32 matmul settings, which must be IEEE f32 (no TF32);
-2. build the four kernels at once from ``mlqem_tpu_torch/csrc/``:
-   ``evolve.cu`` (K1), ``frame_evolve.cu`` (K2), ``fused_step.cu`` (K3) and
-   ``wht.cu`` (K4), one ``nvcc`` each; every instance of K1, K2 and K3
+2. build the kernels at once from ``mlqem_tpu_torch/csrc/``:
+   ``evolve.cu`` (K1), ``frame_evolve.cu`` (K2), ``fused_step.cu`` (K3's
+   chip tier), ``fused_step_wide.cu`` (K3's wide tier and its masks) and
+   ``wht.cu`` (K4), one ``nvcc`` each; every function of K1, K2 and K3
    must show 0 bytes of register spills;
 3. hold K1 (``csrc/evolve.cu``) against its plain PyTorch version on the
    card from |0…0⟩ (nq 6, 8, 10) and from random unit-norm states (nq 1,
@@ -50,25 +51,34 @@ Phases, each of which exits non-zero on failure:
    ⟨Z_q⟩ matching the kicked-Ising engine's within 5 standard errors;
 8. time the frame pipeline: pairs/min, the stages, peak device memory;
 9. hold K4 (``csrc/wht.cu``) against its plain version (w 1 to 22, ragged
-   rows down to 1; max|Δ| ≤ 2e-6·max|want| per plane) and K3
+   rows down to 1; max|Δ| ≤ 2e-6·max|want| per plane) and K3's chip tier
    (``csrc/fused_step.cu``) against its plain version (w 1, 3, 5, 7, 10,
    11, 12, 13, 14: each side of every geometry split; unit-norm states;
-   max|Δ| ≤ 1e-5), and time both at the light-cone path's shapes
-   (K4 also per pass: its low pass alone, in GB/s, beside the two-pass
-   floor);
+   max|Δ| ≤ 1e-5), its w=13 outputs equal, bit for bit, to those of the
+   build before the wide tier (a SHA-256 of them); K3's wide tier
+   (``csrc/fused_step_wide.cu``) against its plain version at w 15, 16,
+   17, 20, 21, 22, 26 (2^28 amplitudes a call) and 30 (one row, the
+   chain's masks without tables; the plain step from the chain's bits):
+   max|Δ| ≤ 1e-5·max|want| per row; its NaN on a table entry other than
+   ±1 and the plain result on signs other than ±1; ``step_masks`` equal to
+   its plain version; and time them at the light-cone path's shapes (K4
+   also per pass, beside the two-pass floor; K3's wide tier at 128 × 2^21
+   beside the parent's step of two K4 calls and torch phases, the plain
+   version, the bound and the pass floor, and at 64 × 2^22, 5 passes);
 10. run the light-cone cross-check (``lightcone_crosscheck``: 100 qubits,
     6 steps, w=13, 4096 realizations) against the Pauli-propagation audit
     values that ship in ``docs/demos/results/audit_values_tpu.npz``:
     90 K3 launches, ideal ≤ 1e-3, noisy arms ≤ 0.03;
 11. run demo1's configuration (``LightconeIsing``: 100 qubits, 10 steps,
-    w=21) through K4: kernel path vs plain path on the same draws
-    (≤ 1e-5); the w=21 ideal arm vs the w=13 one over steps 1-6 (≤ 1e-5);
-    one call of each arm (nf1: 1024 realizations × 49 shots with the ideal
-    arm, 900 K4 launches; nf3: 256 × 196, 200 launches), TREX-corrected
-    values inside their readout bounds;
+    w=21) through K3's wide tier: kernel path vs plain path on the same
+    draws (≤ 1e-5); the w=21 ideal arm vs the w=13 one over steps 1-6
+    (≤ 1e-5); one call of each arm (nf1: 1024 realizations × 49 shots with
+    the ideal arm, 450 K3 launches and 45 of ``step_masks``; nf3: 256 ×
+    196, 100 and 10; no K4), TREX-corrected values inside their readout
+    bounds;
 12. time the light-cone path: seconds per circuit for each arm, the stages
-    of one window chunk, peak device memory, and the artifact's derived
-    engine time;
+    of one window chunk (frame pass, K3 steps, ⟨Z⟩, shots), peak device
+    memory, and the artifact's derived engine time;
 13. run the exact density-matrix path (``IsingLabelPipeline(method=
     "density_matrix")``, 512 circuits) against an independent complex128
     numpy density matrix, its engines against each other, and time it;
@@ -89,13 +99,14 @@ Phases, each of which exits non-zero on failure:
     time, train-step ms and its device busy share (``torch.profiler``),
     s per epoch, predict graphs/s, RMSEs, peak memory.
     No kernel runs in phases 13-16;
-17. ``KickedIsingEngine`` above K1's width: at nq 14 through K3 and at nq
-    20 through K4 (a step at a time), each against the plain path on the
-    same draws (``shots=None``, ≤ 1e-5) with its launch counts; then
-    ``zne_sweep_ising`` at its defaults (BASELINE config 4: nq 20, 4
-    steps, 16 J values, 64 trajectories, 10,000 shots, noise factors
-    (1, 3)) through K4, its ideal labels for 4 J values against a
-    complex128 statevector (≤ 1e-5); seconds, peak memory, launches, RMSEs;
+17. ``KickedIsingEngine`` above K1's width: at nq 14 through K3's chip
+    tier and at nq 20 through its wide tier (a step at a time), each
+    against the plain path on the same draws (``shots=None``, ≤ 1e-5) with
+    its launch counts; then ``zne_sweep_ising`` at its defaults (BASELINE
+    config 4: nq 20, 4 steps, 16 J values, 64 trajectories, 10,000 shots,
+    noise factors (1, 3)) through K3, its ideal labels for 4 J values
+    against a complex128 statevector (≤ 1e-5); seconds, peak memory,
+    launches, RMSEs;
 18. the datasets and the model zoo (BASELINE configs 1-3): every dataset
     family's labels on the card against the CPU (``shots=None``, ≤ 1e-5);
     ``demo2_ising_4q`` at its defaults; ``random_circuit_dataset`` on
@@ -104,7 +115,7 @@ Phases, each of which exits non-zero on failure:
     defaults but a cut epoch count; dataset seconds, s per epoch, RMSEs.
     No kernel runs in phase 18;
 19. ``demo1_zne_mimic_100q`` (BASELINE config 5) at 100 qubits, 10 steps,
-    w=21 through K4, with cut circuit and realization counts (printed): its
+    w=21 through K3, with cut circuit and realization counts (printed): its
     ideal rows against ``LightconeIsing.ideal_stepwise`` (≤ 1e-6), the J00
     row against cos(s·π/2) (≤ 1e-5); seconds, peak memory, RMSEs;
 20. the sparse Pauli-propagation engine (``PauliPropagatorIsing``, plain
@@ -219,8 +230,18 @@ NF1_TRAJ, NF1_SHOTS = 1024, 49        # 50,000 measurements / 1024
 NF3_TRAJ, NF3_SHOTS = 256, 196
 XCK_TRAJ = 4096                       # the cross-check's realizations
 K3_TIME_ROWS = 3 * XCK_TRAJ           # the cross-check's noisy arm
-LC_W = 2 * LC_STEPS + 1               # demo1's window, K4's width
+LC_W = 2 * LC_STEPS + 1               # demo1's window, K3's wide tier
 K4_TOL = 2e-6                         # relative to max|want| per plane
+# K3's wide tier against its plain version: w and rows, 2^28 amplitudes a
+# call (2^30 at w=30, one row); max|Δ| relative to each row's max|want|
+K3_WIDE_CASES = ((15, 8192), (16, 4096), (17, 2048), (20, 256), (21, 128),
+                 (22, 64), (26, 4), (30, 1))
+K3_WIDE_TOL = 1e-5
+K3_TABLES_MAX_W = 27                  # from 28 qubits the tables outgrow 80 GB
+# SHA-256 of K3's chip-tier outputs (re, then im) on step_inputs(13, 7,
+# seed=13) at theta_h 0.9 from the build before the wide tier
+K3_DIGEST = ("eeb24076e70cae02b2e57ff441522e57"
+             "dc4ea9508c94b47ff75ddde37225c60a")
 # the exact path: bench.py --method density_matrix, and the batch-cap probe
 DM_BATCH, DM_CAP_BATCH = 512, 2048
 DM_CHECK, DM_NP_CHECK = 8, 2          # engine cross-checks; numpy circuits
@@ -231,7 +252,7 @@ WIDE_J, WIDE_TRAJ = 4, 16              # phase 17's card-vs-plain batches
 RC_CIRCUITS, RC_DEPTH = 200, 5         # random_circuit_dataset, 10 qubits
 MC_MLP_EPOCHS, MC_GNN_EPOCHS = 50, 40  # model_comparison's 150 / 400, cut
 MBL_EPOCHS = 30                        # train_gnn_mbl's 200, cut
-D1_STEPS = 10                          # demo1's depth: w = 21, K4
+D1_STEPS = 10                          # demo1's depth: w = 21, K3
 D1_CIRCUITS, D1_TRAIN = 4, 2           # demo1's 50 / 10 a step, cut
 D1_TWIRLS, D1_TWIRLS_AMP = 128, 32     # realizations: the artifact's 1024 /
 D1_SHOTS = round(50000 / D1_TWIRLS)    # 256 cut; its 50,000 shots split
@@ -344,6 +365,7 @@ def _counted():
     return {"evolve_fused": kev.evolve_fused,
             "evolve_frame_marginals": kfe.evolve_frame_marginals,
             "fused_trotter_step": kfs.fused_trotter_step,
+            "step_masks": kfs.step_masks,
             "wht_planes": kwht.wht_planes}
 
 
@@ -808,10 +830,275 @@ def frame_phases(card, cuda, device_model):
             "bound_by": k2_bound[1], "library_ms": None}
 
 
+def chain_tables(w, device):
+    """The ±1 tables of a w-qubit chain (``_sign_tables``' layout), made on
+    the device: bit_pm [2^w, w], bond_par [2^w, nb]."""
+    import torch
+
+    from mlqem_tpu_torch.ops.kicked_ising import _bonds
+
+    even, odd = _bonds(w)
+    j = torch.arange(1 << w, dtype=torch.int32, device=device)
+    qs = torch.arange(w, dtype=torch.int32, device=device)
+    bit_pm = 2.0 * ((j[:, None] >> qs) & 1).float() - 1.0
+    a = torch.tensor([p for p, _ in even + odd], dtype=torch.long,
+                     device=device)
+    b = torch.tensor([p for _, p in even + odd], dtype=torch.long,
+                     device=device)
+    return bit_pm, (bit_pm[:, a] * bit_pm[:, b]).contiguous()
+
+
+def chain_masks(w, device):
+    """``step_masks`` of :func:`chain_tables` (w) from the chain itself,
+    without the tables: at 30 qubits they would take 2^30·59·4 bytes."""
+    import torch
+
+    from mlqem_tpu_torch.ops.kicked_ising import _bonds
+
+    even, odd = _bonds(w)
+    dim = 1 << w
+    j = torch.arange(dim, dtype=torch.int32, device=device)
+    masks = torch.zeros(2 * dim + 1, dtype=torch.int32, device=device)
+    masks[:dim] = ~j & (dim - 1)              # bit q clear: bit_pm = -1
+    par = masks[dim:2 * dim]
+    for k, (a, b) in enumerate(even + odd):   # bits differ: bond_par = -1
+        par |= (((j >> a) ^ (j >> b)) & 1) << k
+    return masks
+
+
+def chain_step_plain(re, im, kick, bond, theta_col, w, theta_h):
+    """``fused_trotter_step_reference`` on a w-qubit chain with the sign
+    sums taken from the amplitude's bits instead of the tables."""
+    import torch
+
+    from mlqem_tpu_torch.ops.kernels.wht import wht
+    from mlqem_tpu_torch.ops.kicked_ising import _bonds
+
+    even, odd = _bonds(w)
+    j = torch.arange(1 << w, dtype=torch.int32, device=re.device)
+
+    def rotate(re, im, expo):
+        c, sn = torch.cos(expo), torch.sin(expo)
+        return re * c - im * sn, re * sn + im * c
+
+    re, im = wht(re, w), wht(im, w)
+    dot = torch.zeros_like(re)
+    for q in range(w):
+        dot += kick[:, q:q + 1] * (2.0 * ((j >> q) & 1).float() - 1.0)
+    re, im = rotate(re, im, (theta_h / 2.0) * dot)
+    re, im = wht(re, w), wht(im, w)
+    dot.zero_()
+    for k, (a, b) in enumerate(even + odd):
+        dot += bond[:, k:k + 1] * (1.0 - 2.0 * (((j >> a) ^ (j >> b)) & 1
+                                                ).float())
+    return rotate(re, im, (-0.5 * theta_col) * dot)
+
+
+def step_inputs(nq, rows, seed, device):
+    """K3's inputs from numpy: unit-norm random planes, ±1 signs, θJ and
+    the chain's tables (tests/test_torch_cuda.py's ``_step_inputs``)."""
+    import numpy as np
+    import torch
+
+    from mlqem_tpu_torch.ops.kicked_ising import _sign_tables
+
+    rng = np.random.default_rng(seed)
+    bit_pm, bond_par = _sign_tables(nq)
+    nb = bond_par.shape[1]
+    re = rng.normal(size=(rows, 2 ** nq))
+    im = rng.normal(size=(rows, 2 ** nq))
+    norm = np.sqrt((re ** 2 + im ** 2).sum(axis=1, keepdims=True))
+    arrays = [re / norm, im / norm, rng.choice([-1., 1.], size=(rows, nq)),
+              rng.choice([-1., 1.], size=(rows, nb)),
+              rng.uniform(-1.2, -0.1, size=(rows, 1)), bit_pm, bond_par]
+    return [torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                            device=device) for a in arrays]
+
+
+def parent_step(re, im, kick, bond, theta_col, bit_pm, bond_par, theta_h):
+    """One step as the port ran it above 14 qubits before K3's wide tier
+    (kept here only as a timing row): K4 in place on copies of the planes,
+    the RX phase in torch, K4, the ZZ phase in torch."""
+    import torch
+
+    import mlqem_tpu_torch.ops.kernels.wht as kwht
+
+    w = bit_pm.shape[1]
+    re, im = re.clone(), im.clone()
+
+    def rotate_(expo):
+        c = torch.cos(expo)
+        s = expo.sin_()
+        t = re * s
+        re.mul_(c).addcmul_(im, s, value=-1.0)
+        im.mul_(c).add_(t)
+
+    kwht.wht_planes(re, im, w)
+    rotate_((kick @ bit_pm.T).mul_(theta_h / 2.0))
+    kwht.wht_planes(re, im, w)
+    rotate_((bond @ bond_par.T).mul_(theta_col * -0.5))
+    return re, im
+
+
+def row_relative_err(got, want):
+    """max|Δ| over each row's largest |want| (both planes)."""
+    import torch
+
+    scale = torch.maximum(want[0].abs().amax(dim=1),
+                          want[1].abs().amax(dim=1))[:, None]
+    return max(((g - w).abs() / scale).max().item()
+               for g, w in zip(got, want))
+
+
+def k3_wide_checks(card, cuda):
+    """Phase 9, K3's wide tier: against its plain version at each width of
+    K3_WIDE_CASES, the poisoned tables, signs other than ±1; then its time
+    at the light-cone chunk's shape beside the parent's step, the plain
+    version, the bound and the pass floor, and step_masks' time. Returns
+    the (wide tier, step_masks) records without their launch counts."""
+    import torch
+
+    import mlqem_tpu_torch.ops.kernels.fused_step as kfs
+    from mlqem_tpu_torch.ops.kicked_ising import _bonds
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(15)
+    theta_h = 2.0 * LC_H * LC_DT
+
+    def inputs(w, rows, tables=True):
+        nb = sum(len(b) for b in _bonds(w))
+        re = torch.randn((rows, 2 ** w), device=cuda, generator=gen)
+        im = torch.randn((rows, 2 ** w), device=cuda, generator=gen)
+        norm = (re * re + im * im).sum(dim=1, keepdim=True).sqrt_()
+        re.div_(norm)
+        im.div_(norm)
+
+        def signs(k):
+            return (2.0 * torch.randint(0, 2, (rows, k), device=cuda,
+                                        generator=gen) - 1.0)
+
+        theta = torch.rand((rows, 1), device=cuda, generator=gen) * -1.1 - 0.1
+        tabs = chain_tables(w, cuda) if tables else (None, None)
+        return [re, im, signs(w), signs(nb), theta, *tabs]
+
+    wide_err = 0.0
+    for w, rows in K3_WIDE_CASES:
+        # from 28 qubits the tables outgrow the card: the kernel takes the
+        # chain's masks alone and the plain step takes the chain's bits
+        tables = w <= K3_TABLES_MAX_W
+        args = inputs(w, rows, tables)
+        masks = None if tables else chain_masks(w, cuda)
+        got = kfs.fused_trotter_step(*args, theta_h, masks=masks)
+        del masks
+        want = (kfs.fused_trotter_step_reference(*args, theta_h) if tables
+                else chain_step_plain(*args[:5], w, theta_h))
+        torch.cuda.synchronize()
+        err = row_relative_err(got, want)
+        wide_err = max(wide_err, max((g - x).abs().max().item()
+                                     for g, x in zip(got, want)))
+        print(f"K3 wide tier vs plain: w={w} rows={rows} "
+              f"({len(kfs.high_groups(w))} high passes) max|Δ|/max|want| "
+              f"per row {err:.3e}")
+        require(err <= K3_WIDE_TOL, f"K3's wide tier disagrees with its "
+                f"plain version (w={w}, rows={rows}): {err} > {K3_WIDE_TOL}")
+        del args, got, want
+        torch.cuda.empty_cache()
+    args = inputs(16, 3)
+    bad = list(args)
+    bad[5] = args[5] * 0.5
+    re, im = kfs.fused_trotter_step(*bad, theta_h)
+    poisoned = bool(torch.isnan(re).all() and torch.isnan(im).all())
+    odd = list(args)
+    odd[2] = args[2].clone()
+    odd[2][1, 3] = 0.25
+    odd[3] = args[3].clone()
+    odd[3][2, 0] = -2.0
+    odd_err = row_relative_err(kfs.fused_trotter_step(*odd, theta_h),
+                               kfs.fused_trotter_step_reference(*odd,
+                                                                theta_h))
+    print(f"K3 wide tier, w=16: a table entry of 0.5 gives NaN everywhere: "
+          f"{poisoned}; rows with signs other than ±1 vs plain "
+          f"{odd_err:.3e}")
+    require(poisoned, "K3's wide tier did not poison its outputs")
+    require(odd_err <= K3_WIDE_TOL, f"K3's wide tier with signs other than "
+            f"±1: {odd_err}")
+    del args, bad, odd, re, im
+    torch.cuda.empty_cache()
+
+    # the light-cone chunk's step: LC_CHUNK rows of 2^LC_W
+    args = inputs(LC_W, LC_CHUNK)
+    masks = kfs.step_masks(args[5], args[6])
+    masks_err = int((masks.long() - kfs.step_masks_reference(
+        args[5], args[6]).long()).abs().max())
+    require(masks_err == 0, "step_masks disagrees with its plain version")
+    parent_err = row_relative_err(kfs.fused_trotter_step(*args, theta_h,
+                                                         masks=masks),
+                                  parent_step(*args, theta_h))
+    runs = {"parent": [], "K3": []}
+    for name in ("parent", "K3", "K3", "parent"):       # in turns
+        runs[name].append(time_ms(
+            (lambda: parent_step(*args, theta_h)) if name == "parent" else
+            (lambda: kfs.fused_trotter_step(*args, theta_h, masks=masks)),
+            5))
+    plain_ms = min(time_ms(lambda: kfs.fused_trotter_step_reference(
+        *args, theta_h), 1) for _ in range(2))
+    masks_ms = min(time_ms(lambda: kfs.step_masks(args[5], args[6]), 5)
+                   for _ in range(2))
+    masks_plain = min(time_ms(lambda: kfs.step_masks_reference(
+        args[5], args[6]), 1) for _ in range(2))
+    k_ms, p_ms = min(runs["K3"]), min(runs["parent"])
+    plane_bytes = 8 * args[0].numel()              # both planes, f32
+    k_bound = bound(4 * (sum(a.numel() for a in args[:5]) + masks.numel())
+                    + plane_bytes,                  # the planes written
+                    LC_CHUNK * step_flops(LC_W, args[3].shape[1], 2 ** LC_W))
+    passes = 2 * len(kfs.high_groups(LC_W)) + 1
+    floor_ms = passes * 2 * plane_bytes / HBM_BYTES_PER_S * 1e3
+    m_bound = bound(4 * (args[5].numel() + args[6].numel() + masks.numel()),
+                    0)
+    print(f"K3 wide tier, w={LC_W} rows={LC_CHUNK} (the light-cone chunk; "
+          f"vs the parent's step max|Δ|/max|want| {parent_err:.3e}): kernel "
+          f"{k_ms:.3f} ms (runs {[round(x, 3) for x in runs['K3']]}; "
+          f"{passes} passes, {k_ms / passes:.3f} ms a pass); the parent's "
+          f"step (2 K4 + torch phases, 2 plane copies included) {p_ms:.3f} "
+          f"ms (runs {[round(x, 3) for x in runs['parent']]}); plain "
+          f"PyTorch {plain_ms:.3f} ms; bound {k_bound[0]:.3f} ms "
+          f"({k_bound[1]}); pass floor {floor_ms:.3f} ms ({passes} x "
+          f"{2 * plane_bytes / 1e9:.2f} GB over {HBM_BYTES_PER_S / 1e12} "
+          f"TB/s) [{card}]")
+    print(f"step_masks w={LC_W}: equal to its plain version; kernel "
+          f"{masks_ms:.3f} ms, plain PyTorch "
+          f"{masks_plain:.3f} ms, bound {m_bound[0]:.3f} ms ({m_bound[1]}) "
+          f"[{card}]")
+    require(parent_err <= K3_WIDE_TOL, f"K3's wide tier vs the parent's "
+            f"step: {parent_err}")
+    del args, masks
+    torch.cuda.empty_cache()
+    # the same amplitudes a call one qubit wider: more passes
+    w = LC_W + 1
+    args = inputs(w, LC_CHUNK // 2)
+    masks = kfs.step_masks(args[5], args[6])
+    ms = min(time_ms(lambda: kfs.fused_trotter_step(*args, theta_h,
+                                                    masks=masks), 5)
+             for _ in range(2))
+    n = 2 * len(kfs.high_groups(w)) + 1
+    print(f"K3 wide tier, w={w} rows={LC_CHUNK // 2} ({n} passes, the same "
+          f"bytes): {ms:.3f} ms, {ms / n:.3f} ms a pass [{card}]")
+    del args, masks
+    torch.cuda.empty_cache()
+    return ({"max_abs_err": wide_err, "ms": k_ms, "plain_ms": plain_ms,
+             "bound_ms": k_bound[0], "bound_by": k_bound[1],
+             "library_ms": None},
+            {"max_abs_err": float(masks_err), "ms": masks_ms,
+             "plain_ms": masks_plain,
+             "bound_ms": m_bound[0], "bound_by": m_bound[1],
+             "library_ms": None})
+
+
 def lightcone_checks(card, cuda):
-    """Phase 9: K4 and K3 against their plain versions, and their times at
-    the light-cone path's shapes. Returns (K3, K4) records without their
-    launch counts."""
+    """Phase 9: K4 and K3 (both tiers) against their plain versions, the
+    chip tier against its parent build, and their times at the light-cone
+    path's shapes. Returns (K3, K3's wide tier, step_masks, K4) records
+    without their launch counts."""
     import torch
 
     import mlqem_tpu_torch.ops.kernels.fused_step as kfs
@@ -877,8 +1164,15 @@ def lightcone_checks(card, cuda):
         return err, args
 
     for nq, rows in [(1, 999), (3, 1001), (5, 2049), (7, 4099), (10, 3001),
-                     (11, 129), (12, 65), (13, 257), (kfs.MAX_NQ, 33)]:
+                     (11, 129), (12, 65), (13, 257), (kfs.MAX_CHIP_NQ, 33)]:
         k3_check(nq, rows)
+    digest = hashlib.sha256()
+    for t in kfs.fused_trotter_step(*step_inputs(13, 7, 13, cuda), 0.9):
+        digest.update(t.cpu().numpy().tobytes())
+    print(f"K3 chip tier, w=13: outputs' SHA-256 {digest.hexdigest()} (the "
+          f"build before the wide tier: {K3_DIGEST})")
+    require(digest.hexdigest() == K3_DIGEST,
+            "K3's chip tier changed from the build before the wide tier")
     k3_err, args = k3_check(13, K3_TIME_ROWS)
     theta_h = 2.0 * LC_H * LC_DT
     k3_ms, k3_plain, k3_runs, k3_plain_runs = time_kernel_and_plain(
@@ -925,9 +1219,11 @@ def lightcone_checks(card, cuda):
               f"({k_bound[1]}) [{card}]")
         k4[rows] = (k_ms, p_ms, k_bound)
     k_ms, p_ms, k_bound = k4[LC_CHUNK]
+    k3_wide, masks = k3_wide_checks(card, cuda)
     return ({"max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
              "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
              "library_ms": None},
+            k3_wide, masks,
             {"max_abs_err": k4_err, "ms": k_ms, "plain_ms": p_ms,
              "bound_ms": k_bound[0], "bound_by": k_bound[1],
              "library_ms": None})
@@ -936,7 +1232,7 @@ def lightcone_checks(card, cuda):
 def lightcone_phases(card, cuda):
     """Phases 9-12: K3 and K4 against their plain versions, the cross-check
     on the audit values, demo1's configuration at w=21, and its timing.
-    Returns the (K3, K4) records."""
+    Returns the (K3, K3's wide tier, step_masks, K4) records."""
     import numpy as np
     import torch
 
@@ -946,7 +1242,7 @@ def lightcone_phases(card, cuda):
                                                  lightcone_crosscheck)
 
     # -- 9. K4 and K3 vs their plain versions -------------------------------------
-    k3, k4 = lightcone_checks(card, cuda)
+    k3, k3_wide, masks, k4 = lightcone_checks(card, cuda)
 
     # -- 10. the cross-check against the audit values ------------------------
     audit = np.load(os.path.join(ROOT, "docs", "demos", "results",
@@ -971,8 +1267,8 @@ def lightcone_phases(card, cuda):
           f"{xck['noisy_tol']}), passed={xck['passed']}; launches {counts}; "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
     require(xck["passed"], "the light-cone cross-check failed")
-    require(counts["fused_trotter_step"] == 90 and counts["wht_planes"] == 0,
-            f"expected 90 K3 and 0 K4 launches, got {counts}")
+    require(counts == {**{k: 0 for k in counts}, "fused_trotter_step": 90},
+            f"expected 90 K3 launches and no other, got {counts}")
     k3["launches"] = counts["fused_trotter_step"]
     RESULTS["crosscheck"] = xck
 
@@ -1007,7 +1303,8 @@ def lightcone_phases(card, cuda):
     cone_err = float(np.abs(ideal_w[LC_W][:, :6] - ideal_w[13]).max())
     audit_err = float(np.abs(ideal_w[LC_W][:, :6]
                              - audit["ideal"][:, :6]).max())
-    print(f"cone exactness: ideal arm w={LC_W} (K4) vs w=13 (K3) over steps 1-6 "
+    print(f"cone exactness: ideal arm w={LC_W} (K3's wide tier) vs w=13 (its "
+          f"chip tier) over steps 1-6 "
           f"max|Δ|={cone_err:.3e}; vs the audit ideal {audit_err:.3e}")
     require(cone_err <= TOL, f"w={LC_W} and w=13 ideal arms differ: "
             f"{cone_err}")
@@ -1035,10 +1332,15 @@ def lightcone_phases(card, cuda):
     c3 = read_launches()
     print(f"demo1 circuit J={J50[1]:.4f}: nf1 arm launches {c1}; nf3 arm "
           f"launches {c3}")
-    require(c1["wht_planes"] == 2 * LC_STEPS * 5 * (NF1_TRAJ // LC_CHUNK + 1)
-            and c1["fused_trotter_step"] == 0, f"nf1 launches {c1}")
-    require(c3["wht_planes"] == 2 * LC_STEPS * 5 * (NF3_TRAJ // LC_CHUNK)
-            and c3["fused_trotter_step"] == 0, f"nf3 launches {c3}")
+    # 5 windows x (the chunks, and nf1's ideal arm): a K3 launch a step and
+    # the masks once a chunk; no K4
+    for arm, c, chunks in (("nf1", c1, NF1_TRAJ // LC_CHUNK + 1),
+                           ("nf3", c3, NF3_TRAJ // LC_CHUNK)):
+        want = {**{k: 0 for k in c}, "step_masks": 5 * chunks,
+                "fused_trotter_step": LC_STEPS * 5 * chunks}
+        require(c == want, f"{arm} launches {c}, expected {want}")
+    k3_wide["launches"] = c1["fused_trotter_step"] + c3["fused_trotter_step"]
+    masks["launches"] = c1["step_masks"] + c3["step_masks"]
     k4["launches"] = c1["wht_planes"] + c3["wht_planes"]
     for name, lab in (("ideal", ideal), ("nf1", noisy), ("nf3", amp)):
         require(lab.shape == (1, LC_STEPS, 5), f"{name} shape {lab.shape}")
@@ -1107,9 +1409,8 @@ def lightcone_phases(card, cuda):
     print(f"  (once per window and call, host) window tables: "
           f"{tables_ms / len(LC_QUBITS):.1f} ms")
     print(f"  frame pass (draws + frame walk): {split['frame']:.1f} ms")
-    print(f"  K4 WHTs ({2 * LC_STEPS} calls): {split['wht']:.1f} ms")
-    print(f"  RX + ZZ phases (sign matmuls, cos/sin, rotations): "
-          f"{split['phase']:.1f} ms")
+    print(f"  K3 steps ({LC_STEPS} calls, the masks included): "
+          f"{split['step']:.1f} ms")
     print(f"  <Z_obs> per step: {split['z']:.1f} ms")
     print(f"  flip + readout + shots + mean: {split['shots']:.1f} ms")
     per_circuit = secs["nf1 (+ ideal)"] + secs["nf3"]
@@ -1118,7 +1419,7 @@ def lightcone_phases(card, cuda):
           f"{per_circuit:.3f} s = {51 * per_circuit:.1f} s [{card}]")
     del eng_n, eng_a
     torch.cuda.empty_cache()
-    return k3, k4
+    return k3, k3_wide, masks, k4
 
 # -- the exact density-matrix path and the Estimator API (phases 13-14) ------
 def np_gate(name, params):
@@ -1894,8 +2195,9 @@ def learning_gnn_phase(card, cuda):
 
 
 def kicked_wide_phase(card, cuda):
-    """Phase 17: KickedIsingEngine above K1's width (K3 at nq 14, K4 at nq
-    20) against the plain path, and zne_sweep_ising at its defaults."""
+    """Phase 17: KickedIsingEngine above K1's width (K3's chip tier at nq
+    14, its wide tier at nq 20) against the plain path, and
+    zne_sweep_ising at its defaults."""
     import numpy as np
     import torch
 
@@ -1904,8 +2206,7 @@ def kicked_wide_phase(card, cuda):
 
     t0 = time.perf_counter()
     steps = 4
-    for nq, kernel, per_step in ((14, "fused_trotter_step", 1),
-                                 (ZNE_NQ, "wht_planes", 2)):
+    for nq, masks in ((14, 0), (ZNE_NQ, 1)):
         dev = configurable_device(nq, seed=0)
         J = np.random.default_rng(nq).uniform(0.05, 0.6, size=WIDE_J
                                               ).astype(np.float32)
@@ -1921,8 +2222,10 @@ def kicked_wide_phase(card, cuda):
             del eng
         err = max(float(np.abs(a - b).max())
                   for a, b in zip(out[None], out[False]))
-        want = {k: 0 for k in counts[None]}
-        want[kernel] = 2 * steps * per_step     # noisy and ideal arms
+        # noisy and ideal arms: a K3 launch a step, the wide tier's masks
+        # once an arm
+        want = {**{k: 0 for k in counts[None]},
+                "fused_trotter_step": 2 * steps, "step_masks": 2 * masks}
         print(f"KickedIsingEngine nq={nq} ({WIDE_J} circuits x {WIDE_TRAJ} "
               f"trajectories, {steps} steps, shots=None): card path vs plain "
               f"path on the same draws max|Δ|={err:.3e}; launches "
@@ -1946,8 +2249,8 @@ def kicked_wide_phase(card, cuda):
           f"{ZNE_TRAJ} trajectories, {SHOTS} shots, nf (1, 3)): {secs:.2f} s;"
           f" peak {peak:.2f} GiB; launches {counts}; RMSE noisy "
           f"{sweep['rmse_noisy']:.5f}, ZNE {sweep['rmse_zne']:.5f} [{card}]")
-    want = {k: 0 for k in counts}
-    want["wht_planes"] = 2 * 2 * 4 * 2        # engines x arms x steps x 2
+    want = {**{k: 0 for k in counts},       # engines x arms (x steps)
+            "fused_trotter_step": 2 * 2 * 4, "step_masks": 2 * 2}
     require(counts == want, f"zne sweep: expected launches {want}")
     for k in ("ideal", "noisy", "zne"):
         require(sweep[k].shape == (ZNE_J, ZNE_NQ)
@@ -2067,7 +2370,7 @@ def workflow_phase(card, cuda):
 
 def demo1_phase(card, cuda):
     """Phase 19: demo1_zne_mimic_100q at 100 qubits, 10 steps, w=21 through
-    K4, with cut circuit and realization counts."""
+    K3's wide tier, with cut circuit and realization counts."""
     import numpy as np
     import torch
 
@@ -2092,9 +2395,10 @@ def demo1_phase(card, cuda):
           f"{D1_TWIRLS}/{D1_TWIRLS_AMP} realizations (of 1024/256), "
           f"{D1_SHOTS} shots each): {secs:.2f} s; peak {peak:.2f} GiB; "
           f"launches {counts} [{card}]")
-    # 5 windows x steps x 2 K4 calls x (nf1 + ideal, nf3; J00 alike)
-    want = {k: 0 for k in counts}
-    want["wht_planes"] = Q * D1_STEPS * 2 * 6
+    # 5 windows x (nf1 + ideal, nf3; J00 alike): a K3 launch a step, the
+    # masks once an arm
+    want = {**{k: 0 for k in counts}, "fused_trotter_step": Q * D1_STEPS * 6,
+            "step_masks": Q * 6}
     require(counts == want, f"demo1: expected launches {want}")
     print("demo1 RMSE vs ZNE: noisy {:.5f}, mimic {:.5f}; vs ideal: noisy "
           "{:.5f}, ZNE {:.5f}, mimic {:.5f}".format(
@@ -2895,7 +3199,9 @@ def main():
 
     t0 = time.perf_counter()
     loaders = {"evolve": kev.load_library, "frame_evolve": kfe.load_library,
-               "fused_step": kfs.load_library, "wht": kwht.load_library}
+               "fused_step": kfs.load_library,
+               "fused_step_wide": kfs.load_wide_library,
+               "wht": kwht.load_library}
     with ThreadPoolExecutor(len(loaders)) as pool:
         builds = dict(zip(loaders, pool.map(timed_build, loaders.values())))
     print(f"build: {', '.join(n + '.cu' for n in builds)} built and loaded "
@@ -2912,7 +3218,8 @@ def main():
                     if "spill stores" in line:
                         spills.append("0 bytes spill stores, 0 bytes spill "
                                       "loads" in line)
-        if name in ("evolve", "frame_evolve", "fused_step"):
+        if name in ("evolve", "frame_evolve", "fused_step",
+                    "fused_step_wide"):
             require(spills and all(spills), f"{name}.cu spills registers "
                     f"({spills.count(False)} of {len(spills)} functions)")
         print(f"  {name}.cu: {spills.count(True)} of {len(spills)} functions "
@@ -3031,7 +3338,7 @@ def main():
     torch.cuda.empty_cache()
     k2 = frame_phases(card, cuda, device_model)
     torch.cuda.empty_cache()
-    k3, k4 = lightcone_phases(card, cuda)
+    k3, k3_wide, masks, k4 = lightcone_phases(card, cuda)
     torch.cuda.empty_cache()
     J0, rho0 = density_phases(card, cuda, device_model)
     estimator_phase(card, cuda, device_model, J0, rho0)
@@ -3083,6 +3390,9 @@ def main():
         ("evolve_frame_marginals", "frame_evolve.cu", "frame_evolve.py:134",
          k2),
         ("fused_trotter_step", "fused_step.cu", "fused_step.py:110", k3),
+        ("fused_trotter_step_wide", "fused_step_wide.cu",
+         "fused_step.py:110", k3_wide),
+        ("step_masks", "fused_step_wide.cu", "fused_step.py:110", masks),
         ("wht_planes", "wht.cu", "wht.py:55", k4)]
     record = {"kernels": [
         {"name": name, "route": "cuda",

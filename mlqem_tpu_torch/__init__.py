@@ -61,7 +61,7 @@ Quick start::
     table = model_comparison(ds, configurable_device(10, seed=0),
                              device="cuda")        # OLS / RF / MLP1 / GNN
     sweep = zne_sweep_ising(configurable_device(20, seed=0), nq=20,
-                            device="cuda")         # K4 at 20 qubits
+                            device="cuda")         # K3 at 20 qubits
     demo1 = demo1_zne_mimic_100q(device="cuda", num_twirls=1024,
                                  num_twirls_amp=256, shots=49, t_chunk=128)
 

@@ -11,9 +11,9 @@ evolution is then a Walsh–Hadamard transform around a per-trajectory RX
 phase, and a per-trajectory ZZ phase: the fused kernel of
 :mod:`.kernels.evolve` (K1) up to its width of 13 qubits, and above it
 :func:`kicked_steps`, one step at a time through K3
-(:mod:`.kernels.fused_step`) at 14 qubits or K4 (:mod:`.kernels.wht`) and
-the phases in torch from 15; the light-cone engine evolves its windows
-through the same :func:`kicked_steps`.
+(:mod:`.kernels.fused_step`: its chip tier at 14 qubits, its wide tier in
+passes over device memory from 15); the light-cone engine evolves its
+windows through the same :func:`kicked_steps`.
 
 The stages of :meth:`KickedIsingEngine.run`:
 (b) the frame pass: draw the noise Paulis (:meth:`~KickedIsingEngine.
@@ -28,6 +28,7 @@ Stage (a), the noise tables, is built once in the constructor.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -40,7 +41,6 @@ from . import sampling
 from .density import apply_readout_confusion
 from .kernels import evolve as k_evolve
 from .kernels import fused_step as k_step
-from .kernels import wht as k_wht
 from .kernels.wht import check_ieee_matmul, hadamard_dense, wht
 from .trajectory import compose_pauli_channel, pauli_channel_probs
 
@@ -160,12 +160,12 @@ def propagate_frames(draws: torch.Tensor, bonds: Sequence[Tuple[int, int]],
     return kick, bond, x_after
 
 
-def _rotate_(re: torch.Tensor, im: torch.Tensor, c: torch.Tensor,
-             s: torch.Tensor):
-    """(re + i·im) ← (re + i·im)·(c + i·s), in place."""
-    t = re * s
-    re.mul_(c).addcmul_(im, s, value=-1.0)
-    im.mul_(c).add_(t)
+def basis_planes(rows: int, nq: int, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """re/im planes [rows, 2^nq] of |0…0⟩."""
+    re = torch.zeros((rows, 2 ** nq), dtype=torch.float32, device=device)
+    re[:, 0] = 1.0
+    return re, torch.zeros_like(re)
 
 
 def kicked_steps(re: torch.Tensor, im: torch.Tensor,
@@ -182,61 +182,36 @@ def kicked_steps(re: torch.Tensor, im: torch.Tensor,
 
     ``kick`` [rows, steps, w] and ``bond`` [rows, steps, nb] are the ±1
     angle signs, or None for all +1 (an ideal arm). The tables are in the
-    JAX layout: bit_pm [2^w, w], bond_par [2^w, nb]. Up to K3's width a
-    step is :func:`~.kernels.fused_step.fused_trotter_step`; above it
-    :func:`~.kernels.wht.wht_planes` (K4), the RX phase, K4, the ZZ phase,
-    as the JAX package computes them. ``use_kernel=False`` takes the plain
-    versions; otherwise the wrappers pick kernel or plain version by the
-    tensors' device (a width no kernel takes raises on a CUDA tensor).
-    ``after_step(s, re, im)`` is called after each step; ``mark`` with a
-    stage's name as each has been enqueued ("step" for K3, "wht" and
-    "phase" above K3's width).
+    JAX layout: bit_pm [2^w, w], bond_par [2^w, nb]. A step is
+    :func:`~.kernels.fused_step.fused_trotter_step` (K3) at every width;
+    above its chip tier the masks of the tables are built once a call
+    (:func:`~.kernels.fused_step.step_masks`). ``use_kernel=False`` takes
+    the plain version; otherwise the wrapper picks kernel or plain version
+    by the tensors' device (a width no kernel takes raises on a CUDA
+    tensor). Each step returns new planes and drops the last ones, so
+    planes that the caller does not hold on to (``kicked_steps(
+    *basis_planes(...), ...)``) keep two states alive, not three.
+    ``after_step(s, re, im)`` is called after each step; ``mark`` with
+    "step" as each has been enqueued.
     """
     w, nb = bit_pm.shape[1], bond_par.shape[1]
     rows = theta_j_rows.shape[0]
     after_step = after_step or (lambda s, re_, im_: None)
-    if w <= k_step.MAX_NQ:
-        step = (k_step.fused_trotter_step if use_kernel
-                else k_step.fused_trotter_step_reference)
-        if kick is None:
-            kick = torch.ones((rows, steps, w), device=re.device)
-            bond = torch.ones((rows, steps, nb), device=re.device)
-        theta_col = theta_j_rows.reshape(rows, 1).contiguous()
-        for s in range(steps):
-            re, im = step(re, im, kick[:, s].contiguous(),
-                          bond[:, s].contiguous(), theta_col, bit_pm,
-                          bond_par, theta_h)
-            mark("step")
-            after_step(s, re, im)
-        return re, im
-    planes = k_wht.wht_planes if use_kernel else k_wht.wht_planes_reference
-    zz_scale = theta_j_rows[:, None] * -0.5
-    uniform = kick is None
-    if uniform:   # the phases are the same [dim] vectors every step
-        expo = (theta_h / 2.0) * bit_pm.sum(dim=1)
-        kick_cs = torch.cos(expo), torch.sin(expo)
-        bond_unit = bond_par.sum(dim=1)
+    if not use_kernel:
+        step = k_step.fused_trotter_step_reference
+    elif w > k_step.MAX_CHIP_NQ:
+        step = functools.partial(k_step.fused_trotter_step,
+                                 masks=k_step.step_masks(bit_pm, bond_par))
+    else:
+        step = k_step.fused_trotter_step
+    if kick is None:
+        kick = torch.ones((rows, steps, w), device=re.device)
+        bond = torch.ones((rows, steps, nb), device=re.device)
+    theta_col = theta_j_rows.reshape(rows, 1).contiguous()
     for s in range(steps):
-        re, im = planes(re, im, w)
-        mark("wht")
-        if uniform:
-            _rotate_(re, im, *kick_cs)
-        else:
-            expo = (kick[:, s] @ bit_pm.T).mul_(theta_h / 2.0)
-            c = torch.cos(expo)
-            _rotate_(re, im, c, expo.sin_())
-            del expo, c
-        mark("phase")
-        re, im = planes(re, im, w)
-        mark("wht")
-        if uniform:
-            expo = zz_scale * bond_unit
-        else:
-            expo = (bond[:, s] @ bond_par.T).mul_(zz_scale)
-        c = torch.cos(expo)
-        _rotate_(re, im, c, expo.sin_())
-        del expo, c
-        mark("phase")
+        re, im = step(re, im, kick[:, s].contiguous(), bond[:, s].contiguous(),
+                      theta_col, bit_pm, bond_par, theta_h)
+        mark("step")
         after_step(s, re, im)
     return re, im
 
@@ -260,10 +235,10 @@ class KickedIsingEngine:
 
     ``device`` is the torch device everything runs on. The evolution is K1
     (:func:`~.kernels.evolve.evolve_fused`) up to nq = 13, and
-    :func:`kicked_steps` above it: K3 at nq = 14, K4 and the phases in
-    torch from 15. ``use_kernel``: None runs the CUDA kernels on a CUDA
-    device and their plain PyTorch versions on the CPU; True asks for the
-    kernels (CUDA only); False runs the plain versions anywhere.
+    :func:`kicked_steps` above it: K3 a step at a time. ``use_kernel``:
+    None runs the CUDA kernels on a CUDA device and their plain PyTorch
+    versions on the CPU; True asks for the kernels (CUDA only); False runs
+    the plain versions anywhere.
     """
 
     device_model: DeviceModel
@@ -327,7 +302,7 @@ class KickedIsingEngine:
                                    device=self.device)
 
         # K1 takes the tables transposed, [nq, dim] and [nb, dim];
-        # kicked_steps (K3, K4) takes them as built, [dim, nq], [dim, nb]
+        # kicked_steps (K3) takes them as built, [dim, nq], [dim, nb]
         self._fused = self.nq <= k_evolve.MAX_NQ
         if self._fused:
             self._bit_pm_t = dev(bit_pm.T)
@@ -378,11 +353,8 @@ class KickedIsingEngine:
         computed in place in the evolved re plane.
         """
         rows, S, nb = theta_j_rows.shape[0], self.steps, len(self.bonds)
-        re = torch.zeros((rows, 2 ** self.nq), dtype=torch.float32,
-                         device=self.device)
-        re[:, 0] = 1.0
-        im = torch.zeros_like(re)
         if self._fused:
+            re, im = basis_planes(rows, self.nq, self.device)
             if kick is None:
                 kick = torch.ones((rows, S * self.nq), device=self.device)
                 bond = torch.ones((rows, S * nb), device=self.device)
@@ -394,7 +366,8 @@ class KickedIsingEngine:
                         self.nq, nb)
         else:
             re, im = kicked_steps(
-                re, im, None if kick is None else kick.reshape(rows, S, -1),
+                *basis_planes(rows, self.nq, self.device),
+                None if kick is None else kick.reshape(rows, S, -1),
                 None if bond is None else bond.reshape(rows, S, -1),
                 theta_j_rows, self._bit_pm, self._bond_par, theta_h, S,
                 use_kernel=self._use_kernel)

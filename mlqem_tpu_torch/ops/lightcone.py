@@ -16,9 +16,10 @@ per-trajectory ±1 angle signs from the Pauli-frame pass plus a per-step
 measurement flip.
 
 :meth:`LightconeIsing.evolve_stepwise` evolves a window one step at a time
-through :func:`~.kicked_ising.kicked_steps` (K3 up to 14 qubits, K4 and the
-phases in torch above) and reads ⟨Z_obs⟩ after each. The wrappers pick
-kernel or plain version by the tensors' device.
+through :func:`~.kicked_ising.kicked_steps` (K3 at every width: its chip
+tier up to 14 qubits, its wide tier in passes over device memory above)
+and reads ⟨Z_obs⟩ after each. The wrapper picks kernel or plain version by
+the tensors' device.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ import torch
 from ..device.model import DeviceModel
 from ..device.noise import NoiseModel
 from . import sampling
-from .kicked_ising import Mark, _no_mark, kicked_steps, propagate_frames
+from .kicked_ising import (Mark, _no_mark, basis_planes, kicked_steps,
+                           propagate_frames)
 from .trajectory import compose_pauli_channel, pauli_channel_probs
 
 
@@ -177,24 +179,20 @@ class LightconeIsing:
         ``kick`` [rows, S, w] and ``bond`` [rows, S, nb] are the ±1 angle
         signs, or None for all +1 (the ideal arm). ``mark`` is called with
         a stage's name as each stage has been enqueued ("step" for K3,
-        "wht" and "phase" above K3's width, then "z").
+        then "z", each step).
         """
         w, obs, S = tw["w"], tw["obs"], self.steps
         rows = theta_j_rows.shape[0]
         bit_pm, bond_par = self.sign_tables(tw)
         mz = (-bit_pm[:, obs]).contiguous()
-        re = torch.zeros((rows, 1 << w), dtype=torch.float32,
-                         device=self.device)
-        re[:, 0] = 1.0
-        im = torch.zeros_like(re)
         z = torch.empty((S, rows), dtype=torch.float32, device=self.device)
 
         def read_z(s, re_, im_):
             z[s] = _z_obs(re_, im_, mz)
             mark("z")
 
-        kicked_steps(re, im, kick, bond, theta_j_rows, bit_pm, bond_par,
-                     2.0 * self.h * self.dt, S,
+        kicked_steps(*basis_planes(rows, w, self.device), kick, bond,
+                     theta_j_rows, bit_pm, bond_par, 2.0 * self.h * self.dt, S,
                      use_kernel=self.use_kernel is not False,
                      after_step=read_z, mark=mark)
         return z

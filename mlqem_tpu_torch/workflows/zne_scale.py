@@ -6,7 +6,7 @@ via the kicked-Ising Pauli-frame engine (noise_scale = analytic k-fold
 channel composition = local 2q folding under twirled noise), then
 per-qubit extrapolation to zero noise. Both noise factors and all
 trajectories are batches on ``device``: K1 evolves them up to 13 qubits,
-K3 at 14, K4 and the phases in torch from 15 (the default 20).
+K3 a step at a time from 14 (the default 20).
 """
 from __future__ import annotations
 

@@ -212,11 +212,12 @@ def test_engine_kernel_matches_plain_path(cuda_device):
 
 
 @pytest.mark.parametrize("nq,kernel,per_step", [
-    (14, "fused_trotter_step", 1), (20, "wht_planes", 2)])
+    (14, "fused_trotter_step", 1), (20, "fused_trotter_step", 1)])
 def test_engine_above_k1_width_matches_plain_path(nq, kernel, per_step,
                                                   cuda_device):
-    """Above K1's 13 qubits the engine runs K3 (nq 14) or K4 (nq 20) a
-    step at a time; it used to raise at its first batch."""
+    """Above K1's 13 qubits the engine runs K3 a step at a time (its chip
+    tier at nq 14, its wide tier at nq 20); it used to raise at its first
+    batch."""
     J = np.random.default_rng(2).uniform(0.05, 0.6, size=3)
     counters = {"evolve_fused": kev.evolve_fused,
                 "fused_trotter_step": kfs.fused_trotter_step,
@@ -486,6 +487,69 @@ def test_step_kernel_poisons_output_on_non_sign_tables(nq, cuda_device):
     assert torch.isnan(re).all() and torch.isnan(im).all()
 
 
+def _relative_err(got, want):
+    """max|Δ| over each row's largest |amplitude|, both planes."""
+    scale = torch.maximum(want[0].abs().amax(dim=1),
+                          want[1].abs().amax(dim=1))[:, None]
+    return max(((g - w_).abs() / scale).max().item()
+               for g, w_ in zip(got, want))
+
+
+@pytest.mark.parametrize("nq,rows", [(15, 5), (16, 3), (18, 2), (21, 2)])
+def test_step_wide_tier_matches_reference(nq, rows, cuda_device):
+    """K3's wide tier (passes over device memory) against the plain
+    version, one launch a call, with the chain's nb = nq - 1 bonds."""
+    args = _step_inputs(nq, rows, cuda_device)
+    inputs = [a.clone() for a in args]
+    before = (kfs.fused_trotter_step.launches, kfs.step_masks.launches)
+    got = kfs.fused_trotter_step(*args, 0.9)
+    want = kfs.fused_trotter_step_reference(*args, 0.9)
+    torch.cuda.synchronize()
+    assert (kfs.fused_trotter_step.launches - before[0],
+            kfs.step_masks.launches - before[1]) == (1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(args, inputs))
+    assert _relative_err(got, want) <= 1e-5
+    # masks built once serve every step
+    masks = kfs.step_masks(args[5], args[6])
+    again = kfs.fused_trotter_step(*args, 0.9, masks=masks)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_step_wide_tier_poisons_and_takes_other_signs(cuda_device):
+    """A table entry other than ±1 makes every output NaN; a row whose
+    signs are not all ±1 gets the plain version's result."""
+    args = _step_inputs(16, 3, cuda_device)
+    bad = list(args)
+    bad[5] = args[5] * 0.5
+    re, im = kfs.fused_trotter_step(*bad, 0.5)
+    assert torch.isnan(re).all() and torch.isnan(im).all()
+    odd = list(args)
+    odd[2] = args[2].clone()
+    odd[2][1, 3] = 0.25
+    odd[3] = args[3].clone()
+    odd[3][2, 0] = -2.0
+    got = kfs.fused_trotter_step(*odd, 0.5)
+    want = kfs.fused_trotter_step_reference(*odd, 0.5)
+    assert _relative_err(got, want) <= 1e-5
+
+
+# SHA-256 of K3's chip-tier outputs (re, then im) on _step_inputs(nq, 7,
+# seed=nq) at theta_h 0.9, from the build before the wide tier
+K3_CHIP_DIGESTS = {
+    13: "eeb24076e70cae02b2e57ff441522e57dc4ea9508c94b47ff75ddde37225c60a",
+    14: "9f256e7eb3275e57c8d4d36e2f36fa23f9609a868342bf90342a31386dce6136",
+}
+
+
+@pytest.mark.parametrize("nq", [13, 14])
+def test_step_chip_tier_unchanged_bit_for_bit(nq, cuda_device):
+    digest = hashlib.sha256()
+    for t in kfs.fused_trotter_step(*_step_inputs(nq, 7, cuda_device,
+                                                  seed=nq), 0.9):
+        digest.update(t.cpu().numpy().tobytes())
+    assert digest.hexdigest() == K3_CHIP_DIGESTS[nq]
+
+
 @pytest.mark.parametrize("nq", [1, 5, 6, 10, 11, 13])
 def test_step_kernel_equals_k1_at_one_step(nq, cuda_device):
     """K3 and K1 run the same device code (csrc/kicked_regs.cuh): one step
@@ -525,13 +589,25 @@ def test_step_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     bad[2] = args[2].cpu()
     with pytest.raises(ValueError, match="kick_signs is on cpu"):
         kfs.fused_trotter_step(*bad, 0.5)
+    # the width and bond count are read from the signs, before any table
+    bad = list(args)
+    bad[2] = torch.ones((8, kfs.MAX_NQ + 1), device=cuda_device)
     with pytest.raises(ValueError, match="nq"):
-        kfs.fused_trotter_step(*_step_inputs(15, 1, cuda_device), 0.5)
+        kfs.fused_trotter_step(*bad, 0.5)
+    wide = _step_inputs(15, 1, cuda_device)
+    wide[3] = torch.ones((1, kfs.MAX_NB + 1), device=cuda_device)
+    with pytest.raises(ValueError, match="nb"):
+        kfs.fused_trotter_step(*wide, 0.5)
+    with pytest.raises(ValueError, match="masks"):
+        kfs.fused_trotter_step(*_step_inputs(15, 1, cuda_device), 0.5,
+                               masks=torch.zeros(3, dtype=torch.int32,
+                                                 device=cuda_device))
 
 
 @pytest.mark.parametrize("nq,steps", [(12, 3), (20, 7)])
 def test_lightcone_kernel_matches_plain_path(nq, steps, cuda_device):
-    """w=7 runs through K3, w=15 through K4; the same draws on both."""
+    """w=7 runs through K3's chip tier, w=15 through its wide tier; the
+    same draws on both."""
     J = np.array([0.2, 0.5], np.float32)
     out, launches = [], []
     for use_kernel in (True, False):
@@ -545,8 +621,7 @@ def test_lightcone_kernel_matches_plain_path(nq, steps, cuda_device):
                          kwht.wht_planes.launches - before[1]))
     # 2 windows x steps x (2 noisy chunks + the ideal arm)
     calls = 2 * steps * 3
-    assert launches[0] == ((calls, 0) if 2 * steps + 1 <= kfs.MAX_NQ
-                           else (0, 2 * calls))
+    assert launches[0] == (calls, 0)
     assert launches[1] == (0, 0)
     for got, want in zip(*out):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

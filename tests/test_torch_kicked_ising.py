@@ -22,6 +22,17 @@ from mlqem_tpu_torch import KickedIsingEngine, configurable_device
 from mlqem_tpu_torch.convert import engine_tables_from_numpy
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs six workers on a
+    few cores, and torch's thread pool, oversubscribed, makes these small
+    ops tens of times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _draws(rng, steps, rows, nb):
     """Every one of the 16 Paulis, uniformly: a hard test of propagation."""
     return rng.integers(0, 16, size=(steps, rows, nb, 2)).astype(np.int32)
@@ -167,9 +178,9 @@ def test_engine_refuses_noise_on_rotations():
 
 @pytest.mark.parametrize("nq", [12, 14, 15])
 def test_engine_above_k1_width_matches_jax(nq, rng, monkeypatch):
-    """At 12 qubits the evolution is K1's plain version; at 14 it is
-    ``kicked_steps`` through K3's, at 15 through K4's and the torch phases
-    (the widths the card could not run before: K1 takes nq ≤ 13)."""
+    """At 12 qubits the evolution is K1's plain version; at 14 and 15 it is
+    ``kicked_steps`` through K3's (the widths the card could not run
+    before: K1 takes nq ≤ 13)."""
     B, T, S = 2, 3, 2
     J = rng.uniform(0.05, 0.6, size=B).astype(np.float32)
     kw = dict(nq=nq, steps=S, dt=0.25, n_traj=T, shots=None)
@@ -188,12 +199,12 @@ def test_engine_above_k1_width_matches_jax(nq, rng, monkeypatch):
 
 @pytest.mark.parametrize("nq, route", [(13, "evolve_fused"),
                                        (14, "fused_trotter_step"),
-                                       (15, "wht_planes")])
+                                       (15, "fused_trotter_step")])
 def test_engine_picks_the_kernel_for_its_width(nq, route, monkeypatch):
-    """The engine calls K1's wrapper up to 13 qubits, K3's at 14 and K4's
-    from 15 (on the CPU each wrapper runs its plain version, so the calls
-    are counted here in place of the card's launches); use_kernel=False
-    calls none of them."""
+    """The engine calls K1's wrapper up to 13 qubits and K3's, one call a
+    step, from 14 (on the CPU each wrapper runs its plain version, so the
+    calls are counted here in place of the card's launches);
+    use_kernel=False calls none of them."""
     import mlqem_tpu_torch.ops.kernels.evolve as kev
     import mlqem_tpu_torch.ops.kernels.fused_step as kfs
     import mlqem_tpu_torch.ops.kernels.wht as kwht
@@ -201,15 +212,14 @@ def test_engine_picks_the_kernel_for_its_width(nq, route, monkeypatch):
     calls = {}
     for mod, name in ((kev, "evolve_fused"), (kfs, "fused_trotter_step"),
                       (kwht, "wht_planes")):
-        def counted(*a, _fn=getattr(mod, name), _name=name):
+        def counted(*a, _fn=getattr(mod, name), _name=name, **kw):
             calls[_name] = calls.get(_name, 0) + 1
-            return _fn(*a)
+            return _fn(*a, **kw)
         monkeypatch.setattr(mod, name, counted)
     S = 2
     kw = dict(nq=nq, steps=S, n_traj=2, shots=None, device="cpu")
     J = np.array([0.3], np.float32)
-    want = {"evolve_fused": 2, "fused_trotter_step": 2 * S,
-            "wht_planes": 4 * S}[route]
+    want = {"evolve_fused": 2, "fused_trotter_step": 2 * S}[route]
     got = KickedIsingEngine(configurable_device(nq, seed=0), **kw
                             ).generate(J, seed=0)
     assert calls == {route: want}

@@ -6,8 +6,8 @@ it builds a window's program, and the port calls
 ``mlqem_tpu_torch.ops.sampling``'s, so patching both module attributes with
 a sampler that depends only on the shape hands them the same draws. With
 ``shots=None`` everything after the draws is deterministic and is held to
-float rounding (1e-5). On the CPU the port runs the kernels' plain
-versions: K3's below 15 qubits and K4's above.
+float rounding (1e-5). On the CPU the port runs K3's plain version at
+every width.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +29,17 @@ from mlqem_tpu_torch.workflows.demos import lightcone_crosscheck
 
 DT, H = 0.5, 0.5 * np.pi
 J = np.array([0.05, 0.3, 0.55], np.float32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs six workers on a
+    few cores, and torch's thread pool, oversubscribed, makes these small
+    ops tens of times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _shape_draws(shape):
@@ -194,15 +205,26 @@ def test_cone_is_exact_against_the_full_chain():
         np.testing.assert_allclose(got[:, s - 1], want, atol=1e-5, rtol=0)
 
 
-def test_k4_branch_equals_k3_branch(monkeypatch):
-    """The two evolution branches of evolve_stepwise agree on one window:
-    the fused step (K3's plain version) and WHT + phases (K4's)."""
-    dev = configurable_device(10, seed=1)
-    lc = LightconeIsing(dev, nq=10, steps=3, device="cpu", dt=DT, h=1.3,
-                        n_traj=6, shots=None)
-    noisy, ideal = lc.generate_stepwise(J, qubits=(0, 5), seed=2)
-    monkeypatch.setattr(kfs, "MAX_NQ", 0)
-    noisy2, ideal2 = lc.generate_stepwise(J, qubits=(0, 5), seed=2)
+def test_wide_window_through_the_emulated_passes(monkeypatch):
+    """A 15-qubit window's arms through K3's plain version equal those
+    through the wide tier's passes (``fused_trotter_step_passes``, three
+    high passes at tile_bits=8), on the same draws."""
+    dev = configurable_device(15, seed=1)
+    lc = LightconeIsing(dev, nq=15, steps=7, device="cpu", dt=DT, h=1.3,
+                        n_traj=2, shots=None)
+    noisy, ideal = lc.generate_stepwise(J[:2], qubits=(7,), seed=2)
+    calls = []
+
+    def passes(*args, masks=None):
+        calls.append(masks)
+        return kfs.fused_trotter_step_passes(*args, tile_bits=8,
+                                             masks=masks)
+
+    monkeypatch.setattr(kfs, "fused_trotter_step", passes)
+    noisy2, ideal2 = lc.generate_stepwise(J[:2], qubits=(7,), seed=2)
+    # 7 steps of the noisy arm and of the ideal arm, the masks built once
+    # an arm
+    assert len(calls) == 14 and calls[0] is calls[6]
     np.testing.assert_allclose(noisy2, noisy, atol=1e-6, rtol=0)
     np.testing.assert_allclose(ideal2, ideal, atol=1e-6, rtol=0)
 

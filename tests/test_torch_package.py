@@ -167,6 +167,11 @@ def test_step_and_wht_kernel_sources_and_build_flags():
     _check_kernel_source("wht", "wht_planes_launch", trig=False)
 
 
+def test_wide_step_kernel_source_and_build_flags():
+    _check_kernel_source("fused_step_wide", "fused_trotter_step_wide_launch")
+    _check_kernel_source("fused_step_wide", "step_masks_launch")
+
+
 def test_build_dir_is_ignored_and_sources_are_packaged():
     with open(os.path.join(ROOT, ".gitignore")) as f:
         ignored = f.read().split()
