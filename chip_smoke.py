@@ -426,24 +426,30 @@ def time_batches(generate, J, rng, card, label):
 
 
 def stage_split(run, device):
-    """Median ms of each stage over 3 batches, with a synchronize at each
-    stage mark: ``run(generator, mark)`` runs one batch."""
+    """Median ms of each stage over 3 batches: ``run(generator)`` runs one
+    batch under ``tracing()``, and a stage's ms is the device time of its
+    spans in the batch (CUDA events at the span's ends, no synchronize
+    between stages; host time where no event was recorded), keyed by the
+    span name's last part (``kicked.frame`` → "frame")."""
     import torch
+
+    from mlqem_tpu_torch.utils.profiling import (reset_spans, span_totals,
+                                                 tracing)
 
     stage_ms = {}
     for seed in range(7, 10):
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
-
-        def mark(stage):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stage_ms.setdefault(stage, []).append((now - last[0]) * 1e3)
-            last[0] = now
-
-        run(gen, mark)
+        reset_spans()
+        with tracing():
+            run(gen)
+        sums = {}
+        for path, t in span_totals().items():
+            sec = t["device_s"] if t["device_s"] is not None else t["host_s"]
+            key = path.rsplit(".", 1)[-1]
+            sums[key] = sums.get(key, 0.0) + sec * 1e3
+        for key, ms in sums.items():
+            stage_ms.setdefault(key, []).append(ms)
     return {k: statistics.median(v) for k, v in stage_ms.items()}
 
 
@@ -814,10 +820,9 @@ def frame_phases(card, cuda, device_model):
     # -- 8. timing ---------------------------------------------------------------
     time_batches(pipe.generate, J, rng, card, "frame path ")
     params = torch.as_tensor(pipe.params_from_values(J), device=cuda)
-    split = stage_split(lambda gen, mark: pipe.run(params, gen, mark=mark),
-                        cuda)
-    print(f"frame path stage split (median of 3 batches, synchronized per "
-          f"stage) [{card}]:")
+    split = stage_split(lambda gen: pipe.run(params, gen), cuda)
+    print(f"frame path stage split (median of 3 batches, the spans' device "
+          f"time) [{card}]:")
     print(f"  (a) noise tables + template (host, once per pipeline): "
           f"{tables_s * 1e3:.1f} ms")
     print(f"  (b) draws + frame walk + theta_eff: {split['frame']:.1f} ms")
@@ -1385,27 +1390,11 @@ def lightcone_phases(card, cuda):
     probs = torch.as_tensor(tw["probs"], device=cuda)
     a, b = readout_affine(tw["confusion"])
     theta_j = torch.as_tensor(-2.0 * LC_DT * J50[1:2], device=cuda)
-    split = {}
-    for seed in range(3):
-        gen = torch.Generator(device=cuda)
-        gen.manual_seed(seed)
-        sums = {}
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
-
-        def mark(stage):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            sums[stage] = sums.get(stage, 0.0) + (now - last[0]) * 1e3
-            last[0] = now
-
-        eng_n.run_noisy(tw, theta_j, probs, a, b, gen, mark)
-        for stage, ms in sums.items():
-            split.setdefault(stage, []).append(ms)
-    split = {k: statistics.median(v) for k, v in split.items()}
+    split = stage_split(
+        lambda gen: eng_n.run_noisy(tw, theta_j, probs, a, b, gen), cuda)
     print(f"light-cone stage split, one window chunk ({LC_CHUNK} "
-          f"realizations x 2^{LC_W}, {LC_STEPS} steps; median of 3, "
-          f"synchronized per stage) [{card}]:")
+          f"realizations x 2^{LC_W}, {LC_STEPS} steps; median of 3, the "
+          f"spans' device time) [{card}]:")
     print(f"  (once per window and call, host) window tables: "
           f"{tables_ms / len(LC_QUBITS):.1f} ms")
     print(f"  frame pass (draws + frame walk): {split['frame']:.1f} ms")
@@ -1707,14 +1696,13 @@ def density_phases(card, cuda, device_model):
     # -- timing --------------------------------------------------------------
     time_batches(pipe.generate, J, rng, card, "dm path ")
     pvals = torch.as_tensor(pipe.params_from_values(J), device=cuda)
-    split = stage_split(lambda gen, mark: pipe.run(pvals, gen, mark=mark),
-                        cuda)
+    split = stage_split(lambda gen: pipe.run(pvals, gen), cuda)
     n_ops = len(superop_plan(pipe.ct_struct, pipe.template.bind(
         pvals[:1]).params, pipe._keys, pipe._table))
     dm_bytes = DM_BATCH * 4 ** NQ * 8
     pass_bound_ms = 2 * dm_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"dm path stage split (median of 3 batches, synchronized per "
-          f"stage) [{card}]:")
+    print(f"dm path stage split (median of 3 batches, the spans' device "
+          f"time) [{card}]:")
     print(f"  (a) noise tables + template (host, once per pipeline): "
           f"{tables_s * 1e3:.1f} ms")
     print(f"  (b) op unitaries + fused superop plan ({n_ops} superops from "
@@ -2270,9 +2258,10 @@ def kicked_wide_phase(card, cuda):
     eng = KickedIsingEngine(dev, nq=ZNE_NQ, steps=4, dt=DT, n_traj=ZNE_TRAJ,
                             shots=SHOTS, device=cuda)
     Jt = torch.as_tensor(J_values, device=cuda)
-    split = stage_split(lambda gen, mark: eng.run(Jt, gen, mark=mark), cuda)
+    split = stage_split(lambda gen: eng.run(Jt, gen), cuda)
     print(f"zne sweep, one engine batch ({ZNE_J * ZNE_TRAJ} rows x 2^"
-          f"{ZNE_NQ}), stages (median of 3, synchronized): (b) frame pass "
+          f"{ZNE_NQ}), stages (median of 3, spans' device time): (b) frame "
+          f"pass "
           f"{split['frame']:.1f} ms, (c) evolution {split['evolve']:.1f} ms,"
           f" (d) readout + <Z> + flip + shots {split['readout']:.1f} ms, "
           f"(c') ideal arm {split['ideal']:.1f} ms [{card}]")
@@ -3321,8 +3310,8 @@ def main():
     # -- 5. timing ------------------------------------------------------------
     time_batches(eng.generate, J, rng, card, "")
     Jt = torch.as_tensor(J, device=cuda)
-    split = stage_split(lambda gen, mark: eng.run(Jt, gen, mark=mark), cuda)
-    print(f"stage split (median of 3 batches, synchronized per stage) "
+    split = stage_split(lambda gen: eng.run(Jt, gen), cuda)
+    print(f"stage split (median of 3 batches, the spans' device time) "
           f"[{card}]:")
     print(f"  (a) noise tables (host, once per engine): "
           f"{tables_s * 1e3:.1f} ms")

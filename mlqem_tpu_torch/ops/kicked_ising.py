@@ -24,6 +24,15 @@ frame_signs`), as int32 bit operations over all trajectories at once;
 trajectory_z`), then binomial shots (:meth:`~KickedIsingEngine.
 shot_labels`).
 Stage (a), the noise tables, is built once in the constructor.
+
+Spans (:func:`~..utils.profiling.span`, recorded only while a profiler
+runs or under :func:`~..utils.profiling.tracing`): ``kicked.engine`` (the
+constructor, the twirl of each bond's channel inside it as
+``trajectory.twirl``), ``kicked.generate`` (a request), and in
+:meth:`~KickedIsingEngine.run` ``kicked.frame`` (b), ``kicked.evolve``
+(c), ``kicked.readout`` (d, with its ``kicked.confusion``) and
+``kicked.ideal``; :func:`kicked_steps` records each step's K3 call as
+``kicked.step``.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import torch
 from ..device.model import DeviceModel
 from ..device.noise import NoiseModel
 from ..parallel.mesh import gather_rows, shard_rows
+from ..utils.profiling import span
 from . import sampling
 from .density import apply_readout_confusion
 from .kernels import evolve as k_evolve
@@ -46,13 +56,6 @@ from .trajectory import compose_pauli_channel, pauli_channel_probs
 
 __all__ = ["EngineTables", "KickedIsingEngine", "kicked_steps",
            "propagate_frames", "wht", "wht_mm"]
-
-Mark = Callable[[str], None]
-
-
-def _no_mark(stage: str) -> None:
-    pass
-
 
 def _bonds(nq: int) -> Tuple[List[Tuple[int, int]], List[Tuple[int, int]]]:
     even = [(q, q + 1) for q in range(0, nq - 1, 2)]
@@ -174,8 +177,7 @@ def kicked_steps(re: torch.Tensor, im: torch.Tensor,
                  bond_par: torch.Tensor, theta_h: float, steps: int,
                  use_kernel: bool = True,
                  after_step: Optional[Callable[[int, torch.Tensor,
-                                                torch.Tensor], None]] = None,
-                 mark: Mark = _no_mark
+                                                torch.Tensor], None]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Evolve re/im [rows, 2^w] through ``steps`` kicked-Ising Trotter
     steps, one step at a time; returns the evolved (re, im).
@@ -191,8 +193,8 @@ def kicked_steps(re: torch.Tensor, im: torch.Tensor,
     tensor). Each step returns new planes and drops the last ones, so
     planes that the caller does not hold on to (``kicked_steps(
     *basis_planes(...), ...)``) keep two states alive, not three.
-    ``after_step(s, re, im)`` is called after each step; ``mark`` with
-    "step" as each has been enqueued.
+    ``after_step(s, re, im)`` is called after each step. Each step's
+    call is the span ``kicked.step``.
     """
     w, nb = bit_pm.shape[1], bond_par.shape[1]
     rows = theta_j_rows.shape[0]
@@ -209,9 +211,10 @@ def kicked_steps(re: torch.Tensor, im: torch.Tensor,
         bond = torch.ones((rows, steps, nb), device=re.device)
     theta_col = theta_j_rows.reshape(rows, 1).contiguous()
     for s in range(steps):
-        re, im = step(re, im, kick[:, s].contiguous(), bond[:, s].contiguous(),
-                      theta_col, bit_pm, bond_par, theta_h)
-        mark("step")
+        k_s, b_s = kick[:, s].contiguous(), bond[:, s].contiguous()
+        with span("kicked.step"):
+            re, im = step(re, im, k_s, b_s, theta_col, bit_pm, bond_par,
+                          theta_h)
         after_step(s, re, im)
     return re, im
 
@@ -258,6 +261,12 @@ class KickedIsingEngine:
     noise_scale: int = 1
 
     def __post_init__(self):
+        with span("kicked.engine"):
+            self._build()
+
+    def _build(self):
+        """Checks the arguments; builds the noise and sign tables on the
+        device."""
         self.device = torch.device(self.device)
         if self.nq > 30:
             raise ValueError("statevector width limit (use the sharded or "
@@ -381,8 +390,9 @@ class KickedIsingEngine:
         """Each trajectory's ⟨Z_q⟩ [B, n_traj, nq]: readout confusion on
         the probabilities, ⟨Z⟩, then the frame flip."""
         if self.tables.confusion is not None:
-            probs = apply_readout_confusion(probs, self.tables.confusion,
-                                            self.nq)
+            with span("kicked.confusion"):
+                probs = apply_readout_confusion(probs, self.tables.confusion,
+                                                self.nq)
         check_ieee_matmul(probs)
         z = (probs @ self._neg_bit_pm) * flip
         return z.reshape(-1, self.n_traj, self.nq)
@@ -401,13 +411,11 @@ class KickedIsingEngine:
 
     # ------------------------------------------------------------------
     def run(self, J: torch.Tensor, generator: torch.Generator,
-            mark: Optional[Callable[[str], None]] = None,
             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ideal, noisy) ⟨Z_q⟩ [B, nq] for couplings J [B] on the device.
 
-        ``mark``, if given, is called with a stage's name as each stage
-        has been enqueued ("frame", "evolve", "readout", "ideal"), so a
-        caller can time the stages.
+        Its stages are the spans ``kicked.frame``, ``kicked.evolve``,
+        ``kicked.readout`` and ``kicked.ideal``.
 
         ``mesh`` (:func:`~..parallel.mesh.make_mesh`) shards the batch over
         its dp ranks: every rank draws the whole batch's noise from
@@ -417,37 +425,36 @@ class KickedIsingEngine:
         for the whole batch. So every rank returns what the unsharded
         call returns, shots included.
         """
-        mark = mark or (lambda stage: None)
         B, T = J.shape[0], self.n_traj
         theta_h = 2.0 * self.h * self.dt
-        draws = self.sample_draws(B * T, generator)
-        if mesh is not None:
-            rows = shard_rows(B, mesh).to(J.device)
-            J = J[rows]
-            draws = draws[:, (rows[:, None] * T + torch.arange(
-                T, device=J.device)).reshape(-1)]
 
         def gather(x):
             return x if mesh is None else gather_rows(x, mesh, B)
 
-        theta_j = (-2.0 * self.dt) * J.to(torch.float32)
-        kick, bond, flip = self.frame_signs(draws)
-        del draws
-        mark("frame")
-        probs = self.evolve(theta_h, theta_j.repeat_interleave(T), kick,
-                            bond)
-        del kick, bond
-        mark("evolve")
-        z = gather(self.trajectory_z(probs, flip))
-        del probs
-        noisy = self.shot_labels(z, generator)
-        mark("readout")
+        with span("kicked.frame"):
+            draws = self.sample_draws(B * T, generator)
+            if mesh is not None:
+                rows = shard_rows(B, mesh).to(J.device)
+                J = J[rows]
+                draws = draws[:, (rows[:, None] * T + torch.arange(
+                    T, device=J.device)).reshape(-1)]
+            theta_j = (-2.0 * self.dt) * J.to(torch.float32)
+            kick, bond, flip = self.frame_signs(draws)
+            del draws
+        with span("kicked.evolve"):
+            probs = self.evolve(theta_h, theta_j.repeat_interleave(T), kick,
+                                bond)
+            del kick, bond
+        with span("kicked.readout"):
+            z = gather(self.trajectory_z(probs, flip))
+            del probs
+            noisy = self.shot_labels(z, generator)
         # ideal labels: the same evolution with every sign +1, one row per
         # circuit
-        probs = self.evolve(theta_h, theta_j)
-        check_ieee_matmul(probs)
-        ideal = gather(probs @ self._neg_bit_pm)
-        mark("ideal")
+        with span("kicked.ideal"):
+            probs = self.evolve(theta_h, theta_j)
+            check_ieee_matmul(probs)
+            ideal = gather(probs @ self._neg_bit_pm)
         return ideal, noisy
 
     def generate(self, J_values: np.ndarray, seed: int = 0, mesh=None
@@ -458,9 +465,10 @@ class KickedIsingEngine:
         returns the whole batch's labels, equal to the unsharded call's
         (:meth:`run`).
         """
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(seed)
-        J = torch.as_tensor(np.asarray(J_values, np.float32),
-                            device=self.device)
-        ideal, noisy = self.run(J, generator, mesh=mesh)
-        return ideal.cpu().numpy(), noisy.cpu().numpy()
+        with span("kicked.generate"):
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(seed)
+            J = torch.as_tensor(np.asarray(J_values, np.float32),
+                                device=self.device)
+            ideal, noisy = self.run(J, generator, mesh=mesh)
+            return ideal.cpu().numpy(), noisy.cpu().numpy()

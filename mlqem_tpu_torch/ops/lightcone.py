@@ -20,6 +20,15 @@ through :func:`~.kicked_ising.kicked_steps` (K3 at every width: its chip
 tier up to 14 qubits, its wide tier in passes over device memory above)
 and reads ⟨Z_obs⟩ after each. The wrapper picks kernel or plain version by
 the tensors' device.
+
+Spans (:func:`~..utils.profiling.span`, recorded only while a profiler
+runs or under :func:`~..utils.profiling.tracing`): ``lightcone.
+generate_stepwise`` (a request); ``lightcone.tables`` (a window's tables,
+each bond's twirl inside as ``trajectory.twirl``); ``lightcone.chunk``
+(:meth:`~LightconeIsing.run_noisy`, one chunk of the noisy arm) with
+``lightcone.frame``, ``lightcone.evolve`` and ``lightcone.shots`` inside;
+``lightcone.ideal`` (the ideal arm). Inside an evolution each step is
+``kicked.step`` and each ⟨Z_obs⟩ read ``lightcone.z``.
 """
 from __future__ import annotations
 
@@ -32,8 +41,8 @@ import torch
 from ..device.model import DeviceModel
 from ..device.noise import NoiseModel
 from . import sampling
-from .kicked_ising import (Mark, _no_mark, basis_planes, kicked_steps,
-                           propagate_frames)
+from ..utils.profiling import span
+from .kicked_ising import basis_planes, kicked_steps, propagate_frames
 from .trajectory import compose_pauli_channel, pauli_channel_probs
 
 
@@ -120,26 +129,29 @@ class LightconeIsing:
         the local bonds in global application order (even sublayer first),
         their twirled CX Pauli probabilities [nb, 16] and the readout
         confusion of ``q``."""
-        start, w = cone_window(q, self.steps, self.nq)
-        even = [(a - start, a + 1 - start) for a in range(0, self.nq - 1, 2)
-                if start <= a and a + 1 <= start + w - 1]
-        odd = [(a - start, a + 1 - start) for a in range(1, self.nq - 1, 2)
-               if start <= a and a + 1 <= start + w - 1]
-        bonds = even + odd
-        probs = []
-        for (la, lb) in bonds:
-            chan = None if self._nm is None else \
-                self._nm.channel_for("cx", (la + start, lb + start))
-            p = (pauli_channel_probs(chan) if chan is not None
-                 else np.eye(1, 16, 0)[0])
-            probs.append(p.astype(np.float32))
-        conf = None
-        if (self.readout and self._nm is not None
-                and self._nm.readout is not None):
-            conf = self._nm.readout[q]
-        return {"start": start, "w": w, "obs": q - start, "bonds": bonds,
-                "probs": np.asarray(probs, np.float32).reshape(-1, 16),
-                "confusion": conf}
+        with span("lightcone.tables"):
+            start, w = cone_window(q, self.steps, self.nq)
+            even = [(a - start, a + 1 - start)
+                    for a in range(0, self.nq - 1, 2)
+                    if start <= a and a + 1 <= start + w - 1]
+            odd = [(a - start, a + 1 - start)
+                   for a in range(1, self.nq - 1, 2)
+                   if start <= a and a + 1 <= start + w - 1]
+            bonds = even + odd
+            probs = []
+            for (la, lb) in bonds:
+                chan = None if self._nm is None else \
+                    self._nm.channel_for("cx", (la + start, lb + start))
+                p = (pauli_channel_probs(chan) if chan is not None
+                     else np.eye(1, 16, 0)[0])
+                probs.append(p.astype(np.float32))
+            conf = None
+            if (self.readout and self._nm is not None
+                    and self._nm.readout is not None):
+                conf = self._nm.readout[q]
+            return {"start": start, "w": w, "obs": q - start, "bonds": bonds,
+                    "probs": np.asarray(probs, np.float32).reshape(-1, 16),
+                    "confusion": conf}
 
     def sign_tables(self, tw: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """±1 tables of a window shape on the device, built once: bit_pm
@@ -172,14 +184,12 @@ class LightconeIsing:
     # -- (c) evolution ----------------------------------------------------------
     def evolve_stepwise(self, tw: Dict, theta_j_rows: torch.Tensor,
                         kick: Optional[torch.Tensor] = None,
-                        bond: Optional[torch.Tensor] = None,
-                        mark: Mark = _no_mark) -> torch.Tensor:
+                        bond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Per-step ⟨Z_obs⟩ [S, rows] of |0…0⟩ evolved through the window.
 
         ``kick`` [rows, S, w] and ``bond`` [rows, S, nb] are the ±1 angle
-        signs, or None for all +1 (the ideal arm). ``mark`` is called with
-        a stage's name as each stage has been enqueued ("step" for K3,
-        then "z", each step).
+        signs, or None for all +1 (the ideal arm). Each step is the span
+        ``kicked.step``, each ⟨Z_obs⟩ read after it ``lightcone.z``.
         """
         w, obs, S = tw["w"], tw["obs"], self.steps
         rows = theta_j_rows.shape[0]
@@ -188,49 +198,53 @@ class LightconeIsing:
         z = torch.empty((S, rows), dtype=torch.float32, device=self.device)
 
         def read_z(s, re_, im_):
-            z[s] = _z_obs(re_, im_, mz)
-            mark("z")
+            with span("lightcone.z"):
+                z[s] = _z_obs(re_, im_, mz)
 
         kicked_steps(*basis_planes(rows, w, self.device), kick, bond,
                      theta_j_rows, bit_pm, bond_par, 2.0 * self.h * self.dt, S,
                      use_kernel=self.use_kernel is not False,
-                     after_step=read_z, mark=mark)
+                     after_step=read_z)
         return z
 
     # -- the arms ---------------------------------------------------------------
     def run_noisy(self, tw: Dict, theta_j: torch.Tensor,
                   probs: torch.Tensor, a: float, b: float,
-                  generator: torch.Generator, mark: Mark = _no_mark
-                  ) -> torch.Tensor:
+                  generator: torch.Generator) -> torch.Tensor:
         """One chunk of the noisy arm of a window: θ_J [B] → [B, S].
 
         ``probs`` [nb, 16] are the window's CX Pauli probabilities and
-        (a, b) its readout affine. Stages, for ``mark``: "frame" (draws and
-        frame pass), those of :meth:`evolve_stepwise`, "shots".
+        (a, b) its readout affine. The span ``lightcone.chunk``, with the
+        stages ``lightcone.frame`` (draws and frame pass),
+        ``lightcone.evolve`` (:meth:`evolve_stepwise`) and
+        ``lightcone.shots`` inside.
         """
         S, B = self.steps, theta_j.shape[0]
         T = self.t_chunk if self.t_chunk is not None else self.n_traj
-        draws = sampling.sample_small_categorical(
-            probs[:, None, :], (S, B * T, len(tw["bonds"]), 2), generator)
-        kick, bond, flip = self.frame_signs(draws, tw)
-        del draws
-        mark("frame")
-        z_sim = self.evolve_stepwise(tw, theta_j.repeat_interleave(T), kick,
-                                     bond, mark)
-        del kick, bond
-        # the frame flip is physical (the noise Pauli's X/Y support
-        # commuted to the measurement): z_phys = flip·z_sim, then readout,
-        # then counts
-        z = (flip * z_sim).mul_(float(np.float32(a))).add_(
-            float(np.float32(b)))
-        if self.shots is not None:
-            p1 = ((1.0 - z) / 2.0).clamp_(0.0, 1.0)
-            counts = torch.binomial(torch.full_like(p1, float(self.shots)),
-                                    p1, generator=generator)
-            z = 1.0 - 2.0 * counts / self.shots
-        z = z.reshape(S, B, T).mean(dim=2).T
-        mark("shots")
-        return z
+        with span("lightcone.chunk"):
+            with span("lightcone.frame"):
+                draws = sampling.sample_small_categorical(
+                    probs[:, None, :], (S, B * T, len(tw["bonds"]), 2),
+                    generator)
+                kick, bond, flip = self.frame_signs(draws, tw)
+                del draws
+            with span("lightcone.evolve"):
+                z_sim = self.evolve_stepwise(
+                    tw, theta_j.repeat_interleave(T), kick, bond)
+                del kick, bond
+            with span("lightcone.shots"):
+                # the frame flip is physical (the noise Pauli's X/Y
+                # support commuted to the measurement): z_phys =
+                # flip·z_sim, then readout, then counts
+                z = (flip * z_sim).mul_(float(np.float32(a))).add_(
+                    float(np.float32(b)))
+                if self.shots is not None:
+                    p1 = ((1.0 - z) / 2.0).clamp_(0.0, 1.0)
+                    counts = torch.binomial(
+                        torch.full_like(p1, float(self.shots)), p1,
+                        generator=generator)
+                    z = 1.0 - 2.0 * counts / self.shots
+                return z.reshape(S, B, T).mean(dim=2).T
 
     def _generator(self, seed: int, q: int, ns: int, chunk: int
                    ) -> torch.Generator:
@@ -277,39 +291,42 @@ class LightconeIsing:
         on the estimates, z ← (z_meas − b)/a per qubit (TREX): the shot
         noise is still drawn on the confused probabilities.
         """
-        qubits = list(qubits) if qubits is not None else list(range(self.nq))
-        theta_j = self._theta_j(J_values)
-        B = theta_j.shape[0]
-        noisy = np.empty((B, self.steps, len(qubits)), np.float32)
-        ideal = np.empty((B, self.steps, len(qubits)), np.float32) \
-            if want_ideal else None
-        ns = int(round(noise_scale))
-        if abs(noise_scale - ns) > 1e-9:
-            raise ValueError(
-                f"noise_scale={noise_scale} — channel self-composition "
-                "(local folding) only amplifies by integer factors; use "
-                "integer ZNE noise factors with this engine")
-        n_chunks = (self.n_traj // self.t_chunk
-                    if self.t_chunk is not None else 1)
-        for qi, q in enumerate(qubits):
-            tw = self.window_tables(q)
-            probs = tw["probs"]
-            if ns != 1:
-                probs = np.stack([compose_pauli_channel(
-                    p.astype(np.float64), ns) for p in probs]
-                ).astype(np.float32).reshape(probs.shape)
-            probs_t = torch.as_tensor(probs, device=self.device)
-            a, b = readout_affine(tw["confusion"])
-            outs = [self.run_noisy(tw, theta_j, probs_t, a, b,
-                                   self._generator(seed, q, ns, tc))
-                    for tc in range(n_chunks)]
-            if want_ideal:
-                ideal[:, :, qi] = self.evolve_stepwise(
-                    tw, theta_j).T.cpu().numpy()
-            acc = outs[0].cpu().numpy().astype(np.float64)
-            for n in outs[1:]:
-                acc += n.cpu().numpy()
-            noisy[:, :, qi] = acc / n_chunks
-            if readout_correct and (a, b) != (1.0, 0.0):
-                noisy[:, :, qi] = (noisy[:, :, qi] - b) / a
-        return noisy, ideal
+        with span("lightcone.generate_stepwise"):
+            qubits = (list(qubits) if qubits is not None
+                      else list(range(self.nq)))
+            theta_j = self._theta_j(J_values)
+            B = theta_j.shape[0]
+            noisy = np.empty((B, self.steps, len(qubits)), np.float32)
+            ideal = np.empty((B, self.steps, len(qubits)), np.float32) \
+                if want_ideal else None
+            ns = int(round(noise_scale))
+            if abs(noise_scale - ns) > 1e-9:
+                raise ValueError(
+                    f"noise_scale={noise_scale} — channel self-composition "
+                    "(local folding) only amplifies by integer factors; use "
+                    "integer ZNE noise factors with this engine")
+            n_chunks = (self.n_traj // self.t_chunk
+                        if self.t_chunk is not None else 1)
+            for qi, q in enumerate(qubits):
+                tw = self.window_tables(q)
+                probs = tw["probs"]
+                if ns != 1:
+                    probs = np.stack([compose_pauli_channel(
+                        p.astype(np.float64), ns) for p in probs]
+                    ).astype(np.float32).reshape(probs.shape)
+                probs_t = torch.as_tensor(probs, device=self.device)
+                a, b = readout_affine(tw["confusion"])
+                outs = [self.run_noisy(tw, theta_j, probs_t, a, b,
+                                       self._generator(seed, q, ns, tc))
+                        for tc in range(n_chunks)]
+                if want_ideal:
+                    with span("lightcone.ideal"):
+                        z_ideal = self.evolve_stepwise(tw, theta_j)
+                    ideal[:, :, qi] = z_ideal.T.cpu().numpy()
+                acc = outs[0].cpu().numpy().astype(np.float64)
+                for n in outs[1:]:
+                    acc += n.cpu().numpy()
+                noisy[:, :, qi] = acc / n_chunks
+                if readout_correct and (a, b) != (1.0, 0.0):
+                    noisy[:, :, qi] = (noisy[:, :, qi] - b) / a
+            return noisy, ideal

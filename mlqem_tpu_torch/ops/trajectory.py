@@ -22,6 +22,7 @@ import torch
 
 from ..circuits.circuit import CircuitTensor
 from ..device.noise import NoiseModel, op_channels
+from ..utils.profiling import span
 from .channels import Channel
 from .density import apply_readout_confusion
 from . import sampling
@@ -82,21 +83,23 @@ def pauli_channel_probs(channel: Channel) -> np.ndarray:
     """Pauli-twirled probabilities p[16] of a 2q channel.
 
     p_Q = (1/16) Σ_P w(Q,P) · R_P with R_P = tr(P E(P))/4 the PTM diagonal
-    and w(Q,P) = ±1 for commuting/anticommuting Pauli pairs.
+    and w(Q,P) = ±1 for commuting/anticommuting Pauli pairs. The span
+    ``trajectory.twirl``.
     """
-    ch = channel.expand_to_2q(0) if channel.dim == 2 else channel
-    R = np.zeros(16)
-    for i, P in enumerate(PAULI_4X4):
-        acc = np.zeros((4, 4), dtype=np.complex128)
-        for K in ch.kraus:
-            acc += K @ P @ np.conj(K.T)
-        R[i] = np.real(np.trace(P @ acc)) / 4.0
-    p = (walsh_sign_matrix().astype(np.float64) @ R) / 16.0
-    p = np.clip(p, 0.0, None)
-    s = p.sum()
-    if s > 0:
-        p = p / s
-    return p
+    with span("trajectory.twirl"):
+        ch = channel.expand_to_2q(0) if channel.dim == 2 else channel
+        R = np.zeros(16)
+        for i, P in enumerate(PAULI_4X4):
+            acc = np.zeros((4, 4), dtype=np.complex128)
+            for K in ch.kraus:
+                acc += K @ P @ np.conj(K.T)
+            R[i] = np.real(np.trace(P @ acc)) / 4.0
+        p = (walsh_sign_matrix().astype(np.float64) @ R) / 16.0
+        p = np.clip(p, 0.0, None)
+        s = p.sum()
+        if s > 0:
+            p = p / s
+        return p
 
 
 def twirled_noise_tables(ct: CircuitTensor, noise: Optional[NoiseModel]

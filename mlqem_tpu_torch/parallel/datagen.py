@@ -25,7 +25,7 @@ pipeline runs as batched torch work:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +45,7 @@ from ..ops.kernels.frame_evolve import (evolve_frame_marginals,
 from ..ops.statevector import probabilities, statevector, z_expectations
 from ..ops.trajectory import (run_trajectories_presampled,
                               twirled_noise_tables)
+from ..utils.profiling import span
 from .mesh import gather_rows, shard_rows
 
 METHODS = ("density_matrix", "trajectory", "trajectory_gather", "frame")
@@ -185,15 +186,14 @@ class IsingLabelPipeline:
             (batch, self.n_traj, self.ct_struct.max_ops), generator)
 
     def run(self, params: torch.Tensor, generator: torch.Generator,
-            mark: Optional[Callable[[str], None]] = None,
             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ideal, noisy) ⟨Z_q⟩ [B, nq] for template values params [B, P]
         on the device.
 
-        ``mark``, if given, is called with a stage's name as each stage
-        has been enqueued ("frame", "evolve", "readout", "ideal"; for
-        ``density_matrix`` "frame" closes the superop plan and "evolve"
-        the sweep), so a caller can time the stages.
+        The stages of the module's docstring are the spans
+        ``pipeline.frame`` (b), ``pipeline.evolve`` (c),
+        ``pipeline.readout`` (d) and ``pipeline.ideal`` (c')
+        (:func:`~..utils.profiling.span`).
 
         ``mesh`` (:func:`~.mesh.make_mesh`) shards the batch over its dp
         ranks: every rank draws the whole batch's Paulis from
@@ -203,45 +203,62 @@ class IsingLabelPipeline:
         shots, which are drawn for the whole batch. So every rank returns
         what the unsharded call returns, shots included.
         """
-        mark = mark or (lambda stage: None)
-        B = params.shape[0]
-        choices = (None if self.method == "density_matrix"
-                   else self.sample_draws(B, generator))
-        if mesh is not None:
-            rows = shard_rows(B, mesh).to(params.device)
-            params = params[rows]
-            choices = None if choices is None else choices[rows]
+        B, nq, T = params.shape[0], self.nq, self.n_traj
+        method, confusion = self.method, self.tables.confusion
 
         def gather(x):
             return x if mesh is None else gather_rows(x, mesh, B)
 
-        ct = self.template.bind(params)             # params [b, L, 3]
-        if self.method == "density_matrix":
-            probs = gather(self._density_probs(ct.params, mark))
-            noisy = self._density_shots(probs, generator)
-        else:
-            z_traj = gather(self._trajectory_z(ct.params, choices, mark))
-            noisy = self._trajectory_shots(z_traj, generator)
-        mark("readout")
-        ideal = gather(z_expectations(probabilities(statevector(ct)),
-                                      self.nq))
-        mark("ideal")
+        with span("pipeline.frame"):
+            choices = (None if method == "density_matrix"
+                       else self.sample_draws(B, generator))
+            if mesh is not None:
+                rows = shard_rows(B, mesh).to(params.device)
+                params = params[rows]
+                choices = None if choices is None else choices[rows]
+            ct = self.template.bind(params)             # params [b, L, 3]
+            if method == "density_matrix":
+                plan = superop_plan(self.ct_struct, ct.params, self._keys,
+                                    self._table)
+            elif method == "frame":
+                theta_eff, fx, plan = frame_theta_eff(self.ct_struct,
+                                                      ct.params, choices)
+                del choices
+        with span("pipeline.evolve"):
+            if method == "density_matrix":
+                dms = apply_plan(plan, ct.params.shape[0], max(nq, 2),
+                                 self.device)
+                probs = dm_probabilities(dms)
+                del dms
+            elif method == "frame":
+                evolve = (evolve_frame_marginals if self._engine == "k2"
+                          else evolve_frame_marginals_reference)
+                p1 = evolve(theta_eff, plan, nq)
+                del theta_eff
+            else:
+                states = run_trajectories_presampled(self.ct_struct,
+                                                     ct.params, choices, nq)
+                del choices
+                probs = probabilities(states)
+                del states
+        with span("pipeline.readout"):
+            if method == "density_matrix":
+                if confusion is not None:
+                    probs = apply_readout_confusion(probs, confusion, nq)
+                noisy = self._density_shots(gather(probs), generator)
+            else:
+                if method == "frame":
+                    z_traj = frame_marginals_to_z(
+                        p1.reshape(ct.params.shape[0], T, nq), fx, confusion)
+                else:
+                    if confusion is not None:
+                        probs = apply_readout_confusion(probs, confusion, nq)
+                    z_traj = z_expectations(probs, nq)      # [b, T, nq]
+                noisy = self._trajectory_shots(gather(z_traj), generator)
+        with span("pipeline.ideal"):
+            ideal = gather(z_expectations(probabilities(statevector(ct)),
+                                          nq))
         return ideal, noisy
-
-    def _density_probs(self, params: torch.Tensor,
-                       mark: Callable[[str], None]) -> torch.Tensor:
-        """The noisy outcome distributions [B, 2^nq] from exact density
-        matrices: the superop plan, the sweep, readout confusion."""
-        nq = self.nq
-        plan = superop_plan(self.ct_struct, params, self._keys, self._table)
-        mark("frame")
-        dms = apply_plan(plan, params.shape[0], max(nq, 2), self.device)
-        probs = dm_probabilities(dms)
-        del dms
-        mark("evolve")
-        if self.tables.confusion is not None:
-            probs = apply_readout_confusion(probs, self.tables.confusion, nq)
-        return probs
 
     def _density_shots(self, probs: torch.Tensor,
                        generator: torch.Generator) -> torch.Tensor:
@@ -251,35 +268,6 @@ class IsingLabelPipeline:
             return z_expectations(probs, self.nq)
         return sampling.sampled_z_expectations(probs, self.shots, self.nq,
                                                generator)
-
-    def _trajectory_z(self, params: torch.Tensor, choices: torch.Tensor,
-                      mark: Callable[[str], None]) -> torch.Tensor:
-        """Each Pauli-twirled trajectory's ⟨Z_q⟩ [B, T, nq] (the frame and
-        gather methods), readout confusion included."""
-        nq, T = self.nq, self.n_traj
-        B = params.shape[0]
-        confusion = self.tables.confusion
-        if self.method == "frame":
-            theta_eff, fx, plan = frame_theta_eff(self.ct_struct, params,
-                                                  choices)
-            del choices
-            mark("frame")
-            evolve = (evolve_frame_marginals if self._engine == "k2"
-                      else evolve_frame_marginals_reference)
-            p1 = evolve(theta_eff, plan, nq)
-            del theta_eff
-            mark("evolve")
-            return frame_marginals_to_z(p1.reshape(B, T, nq), fx, confusion)
-        mark("frame")
-        states = run_trajectories_presampled(self.ct_struct, params,
-                                             choices, nq)
-        del choices
-        probs = probabilities(states)
-        del states
-        mark("evolve")
-        if confusion is not None:
-            probs = apply_readout_confusion(probs, confusion, nq)
-        return z_expectations(probs, nq)                # [B, T, nq]
 
     def _trajectory_shots(self, z_traj: torch.Tensor,
                           generator: torch.Generator) -> torch.Tensor:

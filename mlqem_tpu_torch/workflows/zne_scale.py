@@ -6,7 +6,9 @@ via the kicked-Ising Pauli-frame engine (noise_scale = analytic k-fold
 channel composition = local 2q folding under twirled noise), then
 per-qubit extrapolation to zero noise. Both noise factors and all
 trajectories are batches on ``device``: K1 evolves them up to 13 qubits,
-K3 a step at a time from 14 (the default 20).
+K3 a step at a time from 14 (the default 20). A sweep is the span
+``zne.sweep`` (:func:`~..utils.profiling.span`), each engine's
+construction ``kicked.engine`` inside it.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ..device.model import DeviceModel
 from ..metrics import rmse
 from ..mitigation.zne import Extrapolator, LinearExtrapolator
 from ..ops.kicked_ising import KickedIsingEngine
+from ..utils.profiling import span
 
 
 def zne_sweep_ising(device_model: DeviceModel,
@@ -37,37 +40,38 @@ def zne_sweep_ising(device_model: DeviceModel,
 
     Returns ideal / noisy (nf=1) / extrapolated values + RMSE summary.
     """
-    if J_values is None:
-        J_values = np.linspace(0.05, 0.6, 16).astype(np.float32)
-    J_values = np.asarray(J_values, np.float32)
-    extrapolator = extrapolator or LinearExtrapolator()
+    with span("zne.sweep"):
+        if J_values is None:
+            J_values = np.linspace(0.05, 0.6, 16).astype(np.float32)
+        J_values = np.asarray(J_values, np.float32)
+        extrapolator = extrapolator or LinearExtrapolator()
 
-    measured = {}
-    ideal = None
-    for k, nf in enumerate(noise_factors):
-        eng = KickedIsingEngine(device_model, nq=nq, steps=steps,
-                                device=device, dt=dt, h=h, n_traj=n_traj,
-                                shots=shots, noise_scale=int(nf))
-        i_vals, n_vals = eng.generate(J_values, seed=seed + k)
-        del eng
-        measured[nf] = n_vals
-        if ideal is None:
-            ideal = i_vals
+        measured = {}
+        ideal = None
+        for k, nf in enumerate(noise_factors):
+            eng = KickedIsingEngine(device_model, nq=nq, steps=steps,
+                                    device=device, dt=dt, h=h, n_traj=n_traj,
+                                    shots=shots, noise_scale=int(nf))
+            i_vals, n_vals = eng.generate(J_values, seed=seed + k)
+            del eng
+            measured[nf] = n_vals
+            if ideal is None:
+                ideal = i_vals
 
-    nfs = list(noise_factors)
-    stacked = np.stack([measured[nf] for nf in nfs])   # [F, B, nq]
-    F, B, NQ = stacked.shape
-    zne_vals = np.zeros((B, NQ))
-    for b in range(B):
-        for q in range(NQ):
-            zne_vals[b, q] = extrapolator.extrapolate(
-                nfs, stacked[:, b, q])
-    return {
-        "J_values": J_values,
-        "ideal": ideal,
-        "noisy": measured[nfs[0]],
-        "measured": measured,
-        "zne": zne_vals,
-        "rmse_noisy": float(rmse(measured[nfs[0]], ideal)),
-        "rmse_zne": float(rmse(zne_vals, ideal)),
-    }
+        nfs = list(noise_factors)
+        stacked = np.stack([measured[nf] for nf in nfs])   # [F, B, nq]
+        F, B, NQ = stacked.shape
+        zne_vals = np.zeros((B, NQ))
+        for b in range(B):
+            for q in range(NQ):
+                zne_vals[b, q] = extrapolator.extrapolate(
+                    nfs, stacked[:, b, q])
+        return {
+            "J_values": J_values,
+            "ideal": ideal,
+            "noisy": measured[nfs[0]],
+            "measured": measured,
+            "zne": zne_vals,
+            "rmse_noisy": float(rmse(measured[nfs[0]], ideal)),
+            "rmse_zne": float(rmse(zne_vals, ideal)),
+        }

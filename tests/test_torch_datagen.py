@@ -19,6 +19,7 @@ from mlqem_tpu.parallel.datagen import IsingLabelPipeline as JPipeline
 import mlqem_tpu_torch.ops.sampling as t_sampling
 from mlqem_tpu_torch import IsingLabelPipeline, configurable_device
 from mlqem_tpu_torch.convert import pipeline_tables_from_numpy
+from mlqem_tpu_torch.utils.profiling import reset_spans, span_totals, tracing
 
 
 def _share_draws(monkeypatch, draws):
@@ -127,11 +128,14 @@ def test_method_dispatch_and_refusals():
 def test_stage_marks_in_order():
     pipe = IsingLabelPipeline(configurable_device(4, seed=0), nq=4, steps=1,
                               device="cpu", method="frame", n_traj=4)
-    seen = []
     gen = torch.Generator().manual_seed(0)
-    ideal, noisy = pipe.run(torch.tensor([[0.3], [0.5]]), gen,
-                            mark=seen.append)
-    assert seen == ["frame", "evolve", "readout", "ideal"]
+    reset_spans()
+    with tracing():
+        ideal, noisy = pipe.run(torch.tensor([[0.3], [0.5]]), gen)
+    totals = span_totals()
+    assert list(totals) == ["pipeline.frame", "pipeline.evolve",
+                            "pipeline.readout", "pipeline.ideal"]
+    assert all(t["count"] == 1 for t in totals.values())
     assert ideal.shape == noisy.shape == (2, 4)
     assert torch.isfinite(noisy).all() and (noisy.abs() <= 1).all()
 

@@ -48,6 +48,7 @@ from mlqem_tpu_torch.ops.trajectory import (_batch_trajectories,
                                             twirled_noise_tables)
 from mlqem_tpu_torch.ops.unitaries import op_unitaries
 from mlqem_tpu_torch.parallel.datagen import make_ising_template
+from mlqem_tpu_torch.utils.profiling import reset_spans, span_totals, tracing
 
 TOL = 1e-6
 
@@ -303,10 +304,12 @@ def test_dm_pipeline_shots_and_stage_marks():
     sigma = np.sqrt(np.clip(1.0 - z ** 2, 0.0, None) / S)
     assert np.all(np.abs(zs - z) <= 5 * sigma + 1e-6)
     assert not np.array_equal(zs, z)
-    seen = []
-    sampled.run(torch.tensor([[0.3], [0.5]]),
-                torch.Generator().manual_seed(0), mark=seen.append)
-    assert seen == ["frame", "evolve", "readout", "ideal"]
+    reset_spans()
+    with tracing():
+        sampled.run(torch.tensor([[0.3], [0.5]]),
+                    torch.Generator().manual_seed(0))
+    assert list(span_totals()) == ["pipeline.frame", "pipeline.evolve",
+                                   "pipeline.readout", "pipeline.ideal"]
 
 
 def test_sample_outcomes_histogram_within_five_sigma():

@@ -23,6 +23,7 @@ from mlqem_tpu_torch.ops import kicked_ising
 from mlqem_tpu_torch.ops.kernels import fused_step as kfs
 from mlqem_tpu_torch.ops.kernels import wht as kwht
 from mlqem_tpu_torch.ops.kicked_ising import _sign_tables, kicked_steps
+from mlqem_tpu_torch.utils.profiling import reset_spans, span_totals, tracing
 
 THETA_H = 0.9
 
@@ -201,13 +202,15 @@ def test_kicked_steps_calls_k3_once_a_step(w, monkeypatch):
     theta = torch.as_tensor(arrays[4][:, 0])
     re = torch.zeros((rows, 2 ** w))
     re[:, 0] = 1.0
-    marks = []
-    got = kicked_steps(re, torch.zeros_like(re), kick, bond, theta, bit_pm,
-                       bond_par, THETA_H, steps, mark=marks.append)
+    reset_spans()
+    with tracing():
+        got = kicked_steps(re, torch.zeros_like(re), kick, bond, theta,
+                           bit_pm, bond_par, THETA_H, steps)
     assert calls == {"fused_trotter_step": steps,
                      "step_masks": int(w > kfs.MAX_CHIP_NQ),
                      "wht_planes": 0}
-    assert marks == ["step"] * steps
+    assert {p: t["count"] for p, t in span_totals().items()} == {
+        "kicked.step": steps}
     want = kicked_steps(re, torch.zeros_like(re), kick, bond, theta, bit_pm,
                         bond_par, THETA_H, steps, use_kernel=False)
     assert calls["fused_trotter_step"] == steps
