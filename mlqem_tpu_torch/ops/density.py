@@ -15,7 +15,7 @@ f32, as the JAX one pins ``Precision.HIGHEST``) or an elementwise product.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -170,6 +170,17 @@ def apply_readout_confusion(probs: torch.Tensor, confusion: torch.Tensor,
                              m[q, 1, 0] * t0 + m[q, 1, 1] * t1),
                             dim=-2).reshape(batch + (dim,))
     return probs
+
+
+def readout_affine(confusion: Optional[np.ndarray]) -> Tuple[float, float]:
+    """⟨Z⟩ marginal of a column-stochastic confusion C (C[i,j] =
+    P(meas=i | true=j)): z_meas = a·z_true + b."""
+    if confusion is None:
+        return 1.0, 0.0
+    C = np.asarray(confusion, np.float64)
+    a = (C[0, 0] - C[1, 0] + C[1, 1] - C[0, 1]) / 2.0
+    b = (C[0, 0] - C[1, 0] - C[1, 1] + C[0, 1]) / 2.0
+    return float(a), float(b)
 
 
 def expval_pauli_dm(dm: torch.Tensor, x_mask: int, z_mask: int,

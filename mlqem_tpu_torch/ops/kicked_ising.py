@@ -20,9 +20,11 @@ The stages of :meth:`KickedIsingEngine.run`:
 sample_draws`) and propagate the frames (:meth:`~KickedIsingEngine.
 frame_signs`), as int32 bit operations over all trajectories at once;
 (c) the evolution (:meth:`~KickedIsingEngine.evolve`);
-(d) readout confusion, ⟨Z⟩ and the frame flip (:meth:`~KickedIsingEngine.
+(d) ⟨Z⟩, readout confusion and the frame flip (:meth:`~KickedIsingEngine.
 trajectory_z`), then binomial shots (:meth:`~KickedIsingEngine.
-shot_labels`).
+shot_labels`). The assignment matrices act on one qubit each, so the
+confusion is applied to each qubit's ⟨Z⟩ and the row's total, never to
+the [rows, 2^nq] distribution.
 Stage (a), the noise tables, is built once in the constructor.
 
 Spans (:func:`~..utils.profiling.span`, recorded only while a profiler
@@ -48,7 +50,7 @@ from ..device.noise import NoiseModel
 from ..parallel.mesh import gather_rows, shard_rows
 from ..utils.profiling import span
 from . import sampling
-from .density import apply_readout_confusion
+from .density import readout_affine
 from .kernels import evolve as k_evolve
 from .kernels import fused_step as k_step
 from .kernels.wht import check_ieee_matmul, hadamard_dense, wht
@@ -226,10 +228,24 @@ class EngineTables:
     bond_probs [n_bonds, 16] f32: twirled Pauli probabilities of each
     bond's CX (index 4·p_a + p_b); confusion [nq, 2, 2] f32 readout
     assignment matrices M[meas, true], or None without readout error.
+    Derived from confusion when the tables are made: readout [2, nq] f32,
+    each qubit's (a, b) of :func:`~.density.readout_affine` (computed in
+    float64), which map a row's ⟨Z_q⟩ and total T to a·⟨Z_q⟩ + b·T.
     """
 
     bond_probs: torch.Tensor
     confusion: Optional[torch.Tensor]
+    readout: Optional[torch.Tensor] = dataclasses.field(init=False,
+                                                        repr=False)
+
+    def __post_init__(self):
+        if self.confusion is None:
+            self.readout = None
+            return
+        ab = [readout_affine(c) for c in self.confusion.cpu().numpy()]
+        self.readout = torch.as_tensor(
+            np.ascontiguousarray(np.array(ab, np.float32).T),
+            device=self.confusion.device)
 
 
 @dataclasses.dataclass
@@ -320,6 +336,9 @@ class KickedIsingEngine:
             self._bit_pm = dev(bit_pm)
             self._bond_par = dev(bond_par)
         self._neg_bit_pm = dev(-bit_pm)     # ⟨Z_q⟩ = probs @ (−bit_pm)
+        # with readout, one more column of ones: the row's total T
+        self._z_total = (None if ro is None else dev(np.hstack(
+            [-bit_pm, np.ones((2 ** self.nq, 1), np.float32)])))
 
     # ------------------------------------------------------------------
     # (b) frame pass
@@ -383,19 +402,27 @@ class KickedIsingEngine:
         return re.mul_(re).addcmul_(im, im)
 
     # ------------------------------------------------------------------
-    # (d) readout, ⟨Z⟩, frame flip, shots
+    # (d) ⟨Z⟩, readout, frame flip, shots
     # ------------------------------------------------------------------
     def trajectory_z(self, probs: torch.Tensor, flip: torch.Tensor
                      ) -> torch.Tensor:
-        """Each trajectory's ⟨Z_q⟩ [B, n_traj, nq]: readout confusion on
-        the probabilities, ⟨Z⟩, then the frame flip."""
-        if self.tables.confusion is not None:
-            with span("kicked.confusion"):
-                probs = apply_readout_confusion(probs, self.tables.confusion,
-                                                self.nq)
+        """Each trajectory's ⟨Z_q⟩ [B, n_traj, nq]: ⟨Z⟩ of the
+        probabilities, readout confusion, then the frame flip.
+
+        Qubit q's confusion acts on its marginal alone, so the confused
+        ⟨Z_q⟩ is a_q·⟨Z_q⟩ + b_q·T (``tables.readout``), T the row's total:
+        one reduction of ``probs`` against [−bit_pm | 1] gives both. The
+        confusion comes before the flip, as in the JAX engine.
+        """
         check_ieee_matmul(probs)
-        z = (probs @ self._neg_bit_pm) * flip
-        return z.reshape(-1, self.n_traj, self.nq)
+        if self.tables.confusion is None:
+            z = probs @ self._neg_bit_pm
+        else:
+            with span("kicked.confusion"):
+                zt = probs @ self._z_total
+                a, b = self.tables.readout
+                z = torch.addcmul(zt[:, self.nq:] * b, zt[:, :self.nq], a)
+        return z.mul_(flip).reshape(-1, self.n_traj, self.nq)
 
     def shot_labels(self, z: torch.Tensor, generator: torch.Generator
                     ) -> torch.Tensor:

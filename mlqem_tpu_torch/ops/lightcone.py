@@ -41,6 +41,7 @@ import torch
 from ..device.model import DeviceModel
 from ..device.noise import NoiseModel
 from . import sampling
+from .density import readout_affine
 from ..utils.profiling import span
 from .kicked_ising import basis_planes, kicked_steps, propagate_frames
 from .trajectory import compose_pauli_channel, pauli_channel_probs
@@ -52,17 +53,6 @@ def cone_window(q: int, steps: int, nq: int) -> Tuple[int, int]:
     w = min(2 * steps + 1, nq)
     start = min(max(q - steps, 0), nq - w)
     return start, w
-
-
-def readout_affine(confusion: Optional[np.ndarray]) -> Tuple[float, float]:
-    """⟨Z⟩ marginal of a column-stochastic confusion C (C[i,j] =
-    P(meas=i | true=j)): z_meas = a·z_true + b."""
-    if confusion is None:
-        return 1.0, 0.0
-    C = np.asarray(confusion, np.float64)
-    a = (C[0, 0] - C[1, 0] + C[1, 1] - C[0, 1]) / 2.0
-    b = (C[0, 0] - C[1, 0] - C[1, 1] + C[0, 1]) / 2.0
-    return float(a), float(b)
 
 
 def _z_obs(re: torch.Tensor, im: torch.Tensor, mz: torch.Tensor

@@ -14,6 +14,7 @@ import torch
 
 from mlqem_tpu_torch import (IsingLabelPipeline, KickedIsingEngine,
                              LightconeIsing, configurable_device)
+from mlqem_tpu_torch.convert import engine_tables_from_numpy
 from mlqem_tpu_torch.ops.kernels import evolve as kev
 from mlqem_tpu_torch.ops.kernels import frame_evolve as fe
 from mlqem_tpu_torch.ops.kernels import fused_step as kfs
@@ -577,6 +578,52 @@ def test_kicked_engine_refuses_tf32(cuda_device):
         torch.backends.cuda.matmul.allow_tf32 = saved
     ideal, _ = eng.generate(J, seed=0)
     assert np.isfinite(ideal).all()
+
+
+def test_kicked_readout_on_marginals_at_full_rows(cuda_device):
+    """Stage (d) at nq 10 and 4,096 circuits × 32 trajectories: the
+    marginal readout matches the confusion of the whole distribution, and
+    allocates a small share of the probabilities' bytes.
+
+    cuBLAS sums a row's 1,024 terms in f32 one after another, so each path
+    is ~1e-6 off its float64 value on the card: both are held to
+    √(2^nq)·2^−24 (1.9e-6), the typical error of such a sum of total 1.
+    """
+    from mlqem_tpu_torch.ops.density import apply_readout_confusion
+
+    nq, T, B = 10, 32, 4096
+    eng = KickedIsingEngine(configurable_device(nq, seed=0), nq=nq,
+                            steps=1, device=cuda_device, n_traj=T)
+    rng = np.random.default_rng(0)
+    p10, p01 = rng.uniform(0.005, 0.05, nq), rng.uniform(0.06, 0.15, nq)
+    eng.tables = engine_tables_from_numpy(
+        eng.tables.bond_probs.cpu().numpy(),
+        np.array([[1 - p10, p01], [p10, 1 - p01]]).transpose(2, 0, 1),
+        cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    probs = torch.rand((B * T, 2 ** nq), device=cuda_device,
+                       generator=gen) ** 4
+    probs /= probs.sum(dim=1, keepdim=True)
+    flip = 1.0 - 2.0 * (torch.rand((B * T, nq), device=cuda_device,
+                                   generator=gen) < 0.3).float()
+    want = (apply_readout_confusion(probs, eng.tables.confusion, nq)
+            @ eng._neg_bit_pm) * flip
+    exact = (apply_readout_confusion(probs.double(),
+                                     eng.tables.confusion.double(), nq)
+             @ eng._neg_bit_pm.double()) * flip.double()
+    eng.trajectory_z(probs[:T], flip[:T])            # cuBLAS's workspace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = eng.trajectory_z(probs, flip)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    assert grew < 0.1 * probs.numel() * probs.element_size()
+    assert got.shape == (B, T, nq)
+    got = got.reshape(B * T, nq)
+    tol = 2.0 ** (nq / 2 - 24)
+    assert (got - want).abs().max().item() <= tol
+    assert (got.double() - exact).abs().max().item() <= tol
 
 
 def test_step_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):

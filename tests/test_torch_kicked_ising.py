@@ -243,3 +243,101 @@ def test_zne_sweep_at_12_qubits():
     assert out["zne"].shape == out["ideal"].shape == (4, 12)
     assert set(out["measured"]) == {1, 3}
     assert out["rmse_zne"] < out["rmse_noisy"]
+
+
+def _asymmetric_confusion(rng, nq):
+    """Per-qubit assignment matrices M[meas, true] with p(1|0) ≠ p(0|1)."""
+    p10 = rng.uniform(0.005, 0.05, nq)
+    p01 = rng.uniform(0.06, 0.15, nq)
+    return np.array([[1 - p10, p01], [p10, 1 - p01]]).transpose(2, 0, 1)
+
+
+def _engine_with_confusion(nq, conf, n_traj):
+    eng = KickedIsingEngine(configurable_device(nq, seed=0), nq=nq, steps=1,
+                            device="cpu", n_traj=n_traj, shots=None)
+    eng.tables = engine_tables_from_numpy(eng.tables.bond_probs.numpy(),
+                                          conf, device="cpu")
+    return eng
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("nq", [2, 5, 10, 14])
+def test_trajectory_z_equals_confusion_of_the_distribution(nq, scaled, rng):
+    """The marginal readout (a·⟨Z⟩ + b·T, then the flip) against the
+    computation it replaces: the confusion applied to the whole
+    distribution, then ⟨Z⟩, then the flip. Scaled rows (totals in
+    [0.5, 2]) exercise the total's column."""
+    from mlqem_tpu_torch.ops.density import apply_readout_confusion
+
+    T, B = 4, 3
+    conf = _asymmetric_confusion(rng, nq)
+    eng = _engine_with_confusion(nq, conf, T)
+    probs = rng.random((B * T, 2 ** nq)) ** 4
+    probs /= probs.sum(axis=1, keepdims=True)
+    total = rng.uniform(0.5, 2.0, (B * T, 1)) if scaled else 1.0
+    probs = torch.as_tensor((probs * total).astype(np.float32))
+    flip = torch.as_tensor(rng.choice([-1.0, 1.0], (B * T, nq))
+                           .astype(np.float32))
+    want = (apply_readout_confusion(probs, torch.as_tensor(
+        conf.astype(np.float32)), nq) @ eng._neg_bit_pm) * flip
+    got = eng.trajectory_z(probs, flip)
+    assert got.shape == (B, T, nq)
+    tol = 1e-6 * np.broadcast_to(total, (B * T, nq))
+    assert np.all(np.abs(got.reshape(B * T, nq).numpy() - want.numpy())
+                  <= tol)
+
+
+def test_trajectory_z_confuses_before_the_flip(rng):
+    """The JAX engine's order, flip·(a·z + b·T), and not the light-cone
+    engine's a·(flip·z) + b·T: under an asymmetric confusion the two
+    differ by 2·b·T where the flip is −1."""
+    from mlqem_tpu_torch.ops.density import readout_affine
+
+    nq, T = 2, 1
+    conf = _asymmetric_confusion(rng, nq)
+    eng = _engine_with_confusion(nq, conf, T)
+    probs = np.array([[0.5, 0.1, 0.3, 0.1], [0.05, 0.6, 0.1, 0.25]])
+    probs *= np.array([[1.0], [1.7]])
+    flip = np.array([[-1.0, 1.0], [-1.0, -1.0]])
+    z = probs @ eng._neg_bit_pm.numpy().astype(np.float64)
+    total = probs.sum(axis=1, keepdims=True)
+    a, b = np.array([readout_affine(c) for c in conf]).T
+    got = eng.trajectory_z(torch.as_tensor(probs, dtype=torch.float32),
+                           torch.as_tensor(flip, dtype=torch.float32)
+                           ).reshape(2, nq).numpy()
+    np.testing.assert_allclose(got, flip * (a * z + b * total), atol=1e-6,
+                               rtol=0)
+    swapped = a * (flip * z) + b * total
+    assert np.all(np.abs(got - swapped)[flip < 0] > 0.05)
+
+
+def test_generate_reads_out_without_the_distribution(monkeypatch):
+    """With readout on, ``generate`` never confuses the distribution, and
+    records one ``kicked.confusion`` span a call."""
+    import mlqem_tpu_torch.ops.density as t_density
+    import mlqem_tpu_torch.ops.kicked_ising as t_kicked
+    from mlqem_tpu_torch.utils.profiling import (reset_spans, span_totals,
+                                                 tracing)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kicked engine confused the distribution")
+
+    monkeypatch.setattr(t_density, "apply_readout_confusion", refuse)
+    monkeypatch.setattr(t_kicked, "apply_readout_confusion", refuse,
+                        raising=False)
+    eng = KickedIsingEngine(configurable_device(6, seed=0), nq=6, steps=2,
+                            device="cpu", n_traj=4)
+    assert eng.tables.confusion is not None
+    calls = 3
+    reset_spans()
+    try:
+        with tracing():
+            for seed in range(calls):
+                ideal, noisy = eng.generate(np.array([0.2, 0.4]), seed=seed)
+        spans = span_totals()
+    finally:
+        reset_spans()
+    assert np.isfinite(noisy).all() and noisy.shape == (2, 6)
+    assert spans["kicked.generate"]["count"] == calls
+    assert spans["kicked.generate/kicked.readout/kicked.confusion"][
+        "count"] == calls
