@@ -1,5 +1,7 @@
-"""``torch.cuda.max_memory_allocated()`` over the window (its statistics
-reset at the window's start), GiB."""
+"""The fullest device's peak allocated bytes over the window, GiB: the
+entry's ranks' ``max_memory_allocated()`` where it reports them
+(``device_peaks()``), else the harness's own (statistics reset at the
+window's start)."""
 
 
 def read(run):

@@ -5,6 +5,18 @@ once; ``inputs(i)`` makes call i's inputs from the seed, ``call(inputs)``
 makes the call (ending in a host copy) and returns (units, output);
 ``spans(spans)`` wraps the layers it enters; ``release()`` drops the
 program's state; ``check(outputs, rng)`` returns the numbers compared.
+
+An entry whose work runs in processes of its own (ranks on several cards)
+keeps them alive from its constructor until ``release()``: the harness
+reads the cards after the window and before ``release()``, and counts a
+device as used where the run holds memory on it (``cards.py``). Such an
+entry also has ``device_peaks()``, returning
+``{device index: peak allocated bytes over the window}`` as its ranks read
+them: each resets its peak (``torch.cuda.reset_peak_memory_stats``) as
+``warm()`` ends and reads ``max_memory_allocated()`` when asked. The
+line's ``memory_peak_bytes`` is then the largest; without the hook it is
+the harness's own ``max_memory_allocated()``.
+
 A ``Control(Entry)`` beside it makes the same calls' labels from the plain
 reference in TF32: the control of the correctness check, which has to come
 out not correct.

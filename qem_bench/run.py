@@ -11,6 +11,12 @@ of the first call to the end of the last. After the window the outputs are
 checked against the plain reference (``correct``). With ``--trace 1`` the
 first ``trace_calls`` calls of the window are profiled and the per-layer
 metrics are read from the trace.
+
+The line's ``device`` names the devices the run used, read from the cards
+after the window (``cards.py``), and the peak of the fullest: the entry's
+own ranks' peaks where it reports them (``device_peaks()``), else the
+harness's. A run that used fewer devices than its cell's ``chips``, or
+devices of different kinds, prints no line and exits non-zero.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import sys
 import tempfile
 import time
 import traceback
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "mlqem_tpu")
 _T_IMPORT = time.perf_counter()
@@ -46,6 +52,10 @@ def forbidden_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+class DeviceFault(RuntimeError):
+    """The run did not use the devices its cell asks for."""
+
+
 class Run:
     """What the readers of the metrics see."""
 
@@ -62,16 +72,24 @@ class Run:
 def run_cell(cell_name: str, config: dict, traffic: dict, limits: dict,
              e2e: List[dict], per_layer: List[dict], seed: int,
              seconds: float, trace: bool, device: str, reader,
-             t_setup0, stop=None, entry_cls=None, warm=True) -> dict:
+             t_setup0, stop=None, entry_cls=None, warm=True, chips=1,
+             cards=None) -> dict:
     """One run of a cell; returns the result line's object. ``stop(i,
     elapsed)`` replaces the window's end (tests, readings); ``entry_cls``
-    the program's entry (the control)."""
+    the program's entry (the control); ``cards`` what reads the devices
+    used (``cards.Cards(chips)`` on the card, none on the CPU). Raises
+    ``DeviceFault`` where the run used fewer than ``chips`` devices or
+    devices of different kinds."""
     import importlib
 
     import numpy as np
     import torch
 
+    from .cards import Cards
+
     cuda = torch.device(device).type == "cuda"
+    if cards is None and cuda:
+        cards = Cards(chips)            # before set-up: its baseline
     entry_mod = importlib.import_module(
         f"qem_bench.entries.{traffic['entry']}")
     run = Run(config, traffic)
@@ -92,7 +110,8 @@ def run_cell(cell_name: str, config: dict, traffic: dict, limits: dict,
         prof = torch.profiler.profile(activities=acts)
     if cuda:
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        for d in range(chips):
+            torch.cuda.reset_peak_memory_stats(d)
     outputs, attempted, failed = [], 0, 0
     n_traced = traffic.get("trace_calls", 1) if trace else 0
     run.setup_s = t_setup0()
@@ -126,28 +145,37 @@ def run_cell(cell_name: str, config: dict, traffic: dict, limits: dict,
             spans.active = False
             prof.stop()
     run.window_s = t_end - t0
-    if cuda:
-        run.peak_bytes = torch.cuda.max_memory_allocated()
-    if prof is not None:
-        if i < n_traced:
-            spans.active = False
-            prof.stop()
-        path = os.path.join(tempfile.gettempdir(),
-                            f"qem_bench_trace_{cell_name}.json")
-        prof.export_chrome_trace(path)
-        try:
-            run.trace = reduce_trace(path)
-        finally:
-            os.remove(path)
-        if cuda and not run.trace["kernels"]:
-            # no device activity in the profile: CUDA events instead
-            run.trace["device_s"] = spans.event_seconds()
-        run.trace["work"] = dict(spans.work)
-        spans.restore()
-    found = forbidden_modules()
-    if found:
-        raise SystemExit(f"forbidden modules loaded: {found}")
-    entry.release()
+    own = [torch.cuda.max_memory_allocated(d) if cuda else 0
+           for d in range(chips)]
+    try:
+        if prof is not None:
+            if i < n_traced:
+                spans.active = False
+                prof.stop()
+            path = os.path.join(tempfile.gettempdir(),
+                                f"qem_bench_trace_{cell_name}.json")
+            prof.export_chrome_trace(path)
+            try:
+                run.trace = reduce_trace(path)
+            finally:
+                os.remove(path)
+            if cuda and not run.trace["kernels"]:
+                # no device activity in the profile: CUDA events instead
+                run.trace["device_s"] = spans.event_seconds()
+            run.trace["work"] = dict(spans.work)
+            spans.restore()
+        # the entry's ranks and the cards, while the entry holds its state
+        peaks = (entry.device_peaks() if hasattr(entry, "device_peaks")
+                 else {})
+        run.peak_bytes = max(peaks.values()) if peaks else own[0]
+        dev, fault = device_info(cards, chips, own, peaks, run.peak_bytes)
+        found = forbidden_modules()
+        if found:
+            raise SystemExit(f"forbidden modules loaded: {found}")
+    finally:
+        entry.release()
+    if fault:
+        raise DeviceFault(fault)
     if cuda:
         torch.cuda.empty_cache()
     rng = np.random.default_rng([int(seed) % 2 ** 63, 99])
@@ -171,8 +199,7 @@ def run_cell(cell_name: str, config: dict, traffic: dict, limits: dict,
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     result = {"correct": correct, "attempted": attempted, "failed": failed,
-              "metrics": metrics,
-              "device": device_info(device, run.peak_bytes)}
+              "metrics": metrics, "device": dev}
     if trace and run.trace and "busy_s" in run.trace:
         result["device"]["busy_s"] = run.trace["busy_s"]
         result["device"]["window_s"] = run.trace["window_s"]
@@ -181,14 +208,31 @@ def run_cell(cell_name: str, config: dict, traffic: dict, limits: dict,
     return result
 
 
-def device_info(device: str, peak_bytes: int) -> dict:
-    import torch
-
-    if torch.device(device).type != "cuda":
+def device_info(cards, chips: int, own: List[int], peaks: Dict[int, int],
+                peak: int):
+    """The line's ``device`` and what is wrong with it (None where nothing
+    is). ``own``: the harness's peak on each of the ``chips`` devices;
+    ``peaks``: the entry's, where it reports them; ``peak``: the fullest
+    device's. Without ``cards`` (a CPU run) the platform is the CPU."""
+    per = [int(peaks.get(d, own[d])) for d in range(chips)]
+    if cards is None:
         return {"platform": "cpu", "kind": "cpu", "count": 1,
-                "memory_peak_bytes": 0}
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": 1, "memory_peak_bytes": int(peak_bytes)}
+                "memory_peak_bytes": 0,
+                "memory_peak_bytes_per_device": per}, None
+    used = sorted(cards.used())
+    kinds = sorted({cards.kind(d) for d in used})
+    dev = {"platform": "gpu", "kind": kinds[0] if kinds else cards.kind(0),
+           "count": len(used), "memory_peak_bytes": int(peak),
+           "memory_peak_bytes_per_device": per}
+    fault = None
+    if len(used) < chips:
+        fault = (f"the run used {len(used)} of the {chips} device(s) its "
+                 f"cell asks for: it holds memory on device(s) {used} of "
+                 f"0-{chips - 1} (read by {cards.source}); a run that uses "
+                 f"fewer devices than its cell's chips prints no result")
+    elif len(kinds) > 1:
+        fault = f"the devices the run used are of different kinds: {kinds}"
+    return dev, fault
 
 
 def main(argv=None) -> int:
@@ -218,12 +262,17 @@ def main(argv=None) -> int:
         return 2
     import mlqem_tpu_torch  # noqa: F401  (the system under test)
 
-    result = run_cell(
-        args.workload, spec.config(cell["config"]), spec.traffic(
-            cell["traffic"]), spec.limits(args.workload),
-        spec.metrics_for(bench, "end_to_end", args.workload),
-        spec.metrics_for(bench, "per_layer", args.workload), args.seed,
-        args.seconds, bool(args.trace), "cuda", spec.reader, process_age)
+    try:
+        result = run_cell(
+            args.workload, spec.config(cell["config"]), spec.traffic(
+                cell["traffic"]), spec.limits(args.workload),
+            spec.metrics_for(bench, "end_to_end", args.workload),
+            spec.metrics_for(bench, "per_layer", args.workload), args.seed,
+            args.seconds, bool(args.trace), device="cuda",
+            reader=spec.reader, t_setup0=process_age, chips=cell["chips"])
+    except DeviceFault as e:
+        print(f"{args.workload}: {e}", file=sys.stderr)
+        return 4
     found = forbidden_modules()
     if found:
         print(f"forbidden modules loaded: {found}", file=sys.stderr)

@@ -13,6 +13,7 @@ from qem_bench import faults, run, spec
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BENCH = spec.benchmark(ROOT)
+H100 = "NVIDIA H100 80GB HBM3"
 
 TINY = {
     "kicked10q.labels": ({"nq": 4}, {"batch": 512, "check": {
@@ -28,9 +29,10 @@ TINY = {
 
 
 def tiny_run(cell: str, mode: str = "program", seed: int = 2 ** 31 + 5,
-             trace: bool = False):
+             trace: bool = False, **kw):
     """One run of a tiny ``cell`` on the CPU with the cell's own limits:
-    the program, its control, or the program with a planted fault."""
+    the program, its control, or the program with a planted fault; ``kw``
+    goes to ``run_cell`` (``cards``, ``chips``)."""
     c = spec.cell(BENCH, cell)
     cfg, traffic = spec.config(c["config"]), spec.traffic(c["traffic"])
     over_cfg, over_traffic, calls = TINY[cell]
@@ -50,6 +52,21 @@ def tiny_run(cell: str, mode: str = "program", seed: int = 2 ** 31 + 5,
                 spec.metrics_for(BENCH, "end_to_end", cell),
                 spec.metrics_for(BENCH, "per_layer", cell), seed, 0.0, trace,
                 "cpu", spec.reader, lambda: 0.0,
-                stop=lambda i, el: i < calls, entry_cls=entry_cls)
+                stop=lambda i, el: i < calls, entry_cls=entry_cls, **kw)
     finally:
         torch.set_num_threads(threads)
+
+
+class FakeCards:
+    """Stands for ``cards.Cards``: ``held`` {device index: bytes} the run
+    holds; ``kinds`` each device's name (else an H100's)."""
+    source = "a fake reading"
+
+    def __init__(self, held, kinds=None):
+        self.held, self.kinds = dict(held), kinds or {}
+
+    def used(self):
+        return dict(self.held)
+
+    def kind(self, i):
+        return self.kinds.get(i, H100)

@@ -62,3 +62,26 @@ def test_trace_gives_device_time_to_spans(cuda_device):
                  "kicked.evolve_roofline", "idle_pct.kicked"):
         assert name in res["metrics"]
     assert 0 < res["metrics"]["kicked.evolve_roofline"]["value"] <= 105
+
+
+def test_ranks_on_every_card_are_counted(cuda_device):
+    """A stub entry whose calls run on persistent NCCL ranks, one on each
+    visible card, started by ``mesh.spawn``; the harness's process
+    allocates nothing. The line counts every rank's card, read from the
+    cards, and reports the ranks' own peaks."""
+    import mesh_stub
+
+    world, numel = torch.cuda.device_count(), 1 << 24
+    res = run.run_cell(
+        "stub", {}, {"entry": "kicked", "numel": numel}, {"sum_err": 0.0},
+        spec.metrics_for(BENCH, "end_to_end", "stub"), [], 2 ** 31 + 79,
+        0.0, False, cuda_device, spec.reader, lambda: 0.0,
+        stop=lambda i, el: i < 3, entry_cls=mesh_stub.Entry, chips=world)
+    dev = res["device"]
+    print(f"cards seen: {world}; device: {dev}")
+    assert res["correct"], res["checks"]
+    assert dev["count"] == world
+    assert dev["kind"] == torch.cuda.get_device_name(0)
+    per = dev["memory_peak_bytes_per_device"]
+    assert len(per) == world and min(per) >= 4 * numel
+    assert dev["memory_peak_bytes"] == max(per)

@@ -21,8 +21,8 @@ def test_result_has_the_contract_keys(trace):
         {"breakdown"} if trace else set())
     assert res["correct"] is True and res["failed"] == 0
     assert res["attempted"] == 3
-    assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(
-        res["device"])
+    assert {"platform", "kind", "count", "memory_peak_bytes",
+            "memory_peak_bytes_per_device"} <= set(res["device"])
     for c in res["checks"].values():
         assert set(c) == {"value", "limit"}
     if trace:

@@ -33,7 +33,7 @@ def test_configs_found_by_name(cfg):
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
 def test_cells_find_their_pieces(cell):
-    assert NAME.match(cell["name"]) and cell["chips"] == 1
+    assert NAME.match(cell["name"]) and cell["chips"] in (1, 4)
     assert len(cell["why"]) <= 200
     traffic = spec.traffic(cell["traffic"])
     assert os.path.exists(os.path.join(spec.HERE, "entries",
@@ -62,6 +62,13 @@ def test_metric_readers_found_by_name(kind, metric):
                                     "program_counter", "host_clock")
     if "roofline" in metric["name"]:
         assert metric["name"].endswith("_roofline") and metric["unit"] == "%"
+
+
+def test_four_chip_cells_within_the_share():
+    """At most a quarter of the cells, rounded down, ask for 4 chips; one
+    always may."""
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
 
 
 def test_layers_named_alike():
