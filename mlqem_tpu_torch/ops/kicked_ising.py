@@ -31,10 +31,12 @@ Spans (:func:`~..utils.profiling.span`, recorded only while a profiler
 runs or under :func:`~..utils.profiling.tracing`): ``kicked.engine`` (the
 constructor, the twirl of each bond's channel inside it as
 ``trajectory.twirl``), ``kicked.generate`` (a request), and in
-:meth:`~KickedIsingEngine.run` ``kicked.frame`` (b), ``kicked.evolve``
-(c), ``kicked.readout`` (d, with its ``kicked.confusion``) and
-``kicked.ideal``; :func:`kicked_steps` records each step's K3 call as
-``kicked.step``.
+:meth:`~KickedIsingEngine.run` ``kicked.frame`` (b, with its
+``kicked.draws``), ``kicked.evolve`` (c), ``kicked.readout`` (d, with its
+``kicked.confusion`` and ``kicked.shots``) and ``kicked.ideal``;
+:func:`kicked_steps` records each step's K3 call as ``kicked.step``;
+``mesh.gather`` (:func:`~..parallel.mesh.gather_rows`) each all-gather
+of a sharded call.
 """
 from __future__ import annotations
 
@@ -441,8 +443,11 @@ class KickedIsingEngine:
             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """(ideal, noisy) ⟨Z_q⟩ [B, nq] for couplings J [B] on the device.
 
-        Its stages are the spans ``kicked.frame``, ``kicked.evolve``,
-        ``kicked.readout`` and ``kicked.ideal``.
+        Its stages are the spans ``kicked.frame`` (the whole batch's noise
+        draw inside it as ``kicked.draws``), ``kicked.evolve``,
+        ``kicked.readout`` (the whole batch's shots inside it as
+        ``kicked.shots``) and ``kicked.ideal``; with ``mesh``, each
+        all-gather is ``mesh.gather``.
 
         ``mesh`` (:func:`~..parallel.mesh.make_mesh`) shards the batch over
         its dp ranks: every rank draws the whole batch's noise from
@@ -459,7 +464,8 @@ class KickedIsingEngine:
             return x if mesh is None else gather_rows(x, mesh, B)
 
         with span("kicked.frame"):
-            draws = self.sample_draws(B * T, generator)
+            with span("kicked.draws"):
+                draws = self.sample_draws(B * T, generator)
             if mesh is not None:
                 rows = shard_rows(B, mesh).to(J.device)
                 J = J[rows]
@@ -475,7 +481,8 @@ class KickedIsingEngine:
         with span("kicked.readout"):
             z = gather(self.trajectory_z(probs, flip))
             del probs
-            noisy = self.shot_labels(z, generator)
+            with span("kicked.shots"):
+                noisy = self.shot_labels(z, generator)
         # ideal labels: the same evolution with every sign +1, one row per
         # circuit
         with span("kicked.ideal"):

@@ -36,6 +36,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from ..utils.profiling import span
+
 Device = Union[str, torch.device]
 # how long spawn waits for a rank's result before it stops the ranks
 RANK_TIMEOUT_S = 900.0
@@ -103,12 +105,15 @@ def shard_rows(n: int, mesh: DeviceMesh) -> torch.Tensor:
 
 def gather_rows(x: torch.Tensor, mesh: DeviceMesh, n: int) -> torch.Tensor:
     """Every dp index's rows of ``x`` in order, the pad cut off: the first
-    n rows of the padded batch, on every rank."""
+    n rows of the padded batch, on every rank. The all-gather is the span
+    ``mesh.gather``; its device time includes the wait for the slowest
+    rank."""
     if mesh.size(0) == 1:
         return x[:n]
-    parts = [torch.empty_like(x) for _ in range(mesh.size(0))]
-    dist.all_gather(parts, x.contiguous(), group=mesh.get_group("dp"))
-    return torch.cat(parts)[:n]
+    with span("mesh.gather"):
+        parts = [torch.empty_like(x) for _ in range(mesh.size(0))]
+        dist.all_gather(parts, x.contiguous(), group=mesh.get_group("dp"))
+        return torch.cat(parts)[:n]
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -17,7 +17,9 @@ its host time and, once CUDA is initialised, the device time between a
 CUDA event pair on the current stream to an aggregate kept per *path*:
 the names of the open spans from the outermost down, joined by ``/``.
 Nothing synchronizes while spans record; :func:`span_totals` reads the
-events, synchronizing once.
+events, synchronizing once. Spans record in the process that runs them:
+:func:`fold_spans` adds another process's totals (a rank's) under a
+prefix of its own.
 """
 from __future__ import annotations
 
@@ -194,9 +196,25 @@ def span_totals() -> Dict[str, Dict[str, Optional[float]]]:
                 for path, t in _RECORDER.totals.items()}
 
 
+def fold_spans(totals: Dict[str, Dict[str, Optional[float]]],
+               prefix: str) -> None:
+    """Add another process's :func:`span_totals` (a rank's, say) to this
+    process's aggregates, each path under ``prefix`` (``"mesh.rank1/"``):
+    counts, host and self host times and device times add to what the
+    path holds already. :func:`reset_spans` drops them with the rest."""
+    with _RECORDER.lock:
+        for path, t in totals.items():
+            tot = _RECORDER.totals.setdefault(prefix + path, _SpanTotal())
+            tot.count += int(t["count"])
+            tot.host_ns += round(t["host_s"] * 1e9)
+            tot.child_ns += round((t["host_s"] - t["self_host_s"]) * 1e9)
+            if t["device_s"] is not None:
+                tot.device_ms = (tot.device_ms or 0.0) + t["device_s"] * 1e3
+
+
 def reset_spans() -> None:
-    """Drop every span aggregate (spans still open are recorded when they
-    close)."""
+    """Drop every span aggregate, folded ones included (spans still open
+    are recorded when they close)."""
     with _RECORDER.lock:
         _RECORDER.totals.clear()
 

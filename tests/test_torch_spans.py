@@ -20,12 +20,13 @@ from mlqem_tpu_torch import (KickedIsingEngine, LightconeIsing,
                              configurable_device)
 from mlqem_tpu_torch.ops.kernels import evolve as kev
 from mlqem_tpu_torch.ops.kernels import fused_step as kfs
-from mlqem_tpu_torch.utils.profiling import (reset_spans, span, span_totals,
-                                             trace, tracing)
+from mlqem_tpu_torch.utils.profiling import (fold_spans, reset_spans, span,
+                                             span_totals, trace, tracing)
 from mlqem_tpu_torch.workflows.zne_scale import zne_sweep_ising
 
-KICKED = ["kicked.frame", "kicked.evolve", "kicked.readout",
-          "kicked.readout/kicked.confusion", "kicked.ideal"]
+KICKED = ["kicked.frame", "kicked.frame/kicked.draws", "kicked.evolve",
+          "kicked.readout", "kicked.readout/kicked.confusion",
+          "kicked.readout/kicked.shots", "kicked.ideal"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -171,6 +172,36 @@ def test_off_path_records_nothing_and_enters_no_range(monkeypatch):
     zne_sweep_ising(configurable_device(4, seed=0), nq=4, steps=2,
                     J_values=np.array([0.2, 0.5], np.float32), n_traj=4,
                     shots=100, device="cpu")
+    assert span_totals() == {}
+
+
+def test_folded_totals_land_under_their_prefix():
+    """Another process's totals (a rank's ``span_totals()``) add to this
+    process's under a prefix, with their counts and times; folding twice
+    adds; ``reset_spans()`` drops them."""
+    rank = {"kicked.generate": {"count": 2, "host_s": 0.5,
+                                "self_host_s": 0.125, "device_s": 0.25},
+            "kicked.generate/mesh.gather": {"count": 4, "host_s": 0.375,
+                                            "self_host_s": 0.375,
+                                            "device_s": None}}
+    with tracing():
+        with span("kicked.generate"):
+            pass
+    fold_spans(rank, "mesh.rank1/")
+    got = span_totals()
+    assert list(got) == ["kicked.generate", "mesh.rank1/kicked.generate",
+                         "mesh.rank1/kicked.generate/mesh.gather"]
+    assert got["kicked.generate"]["count"] == 1
+    assert got["mesh.rank1/kicked.generate"] == rank["kicked.generate"]
+    assert got["mesh.rank1/kicked.generate/mesh.gather"] == \
+        rank["kicked.generate/mesh.gather"]
+    fold_spans(rank, "mesh.rank1/")
+    fold_spans(rank, "mesh.rank2/")
+    twice = span_totals()["mesh.rank1/kicked.generate"]
+    assert twice == {"count": 4, "host_s": 1.0, "self_host_s": 0.25,
+                     "device_s": 0.5}
+    assert span_totals()["mesh.rank2/kicked.generate"]["count"] == 2
+    reset_spans()
     assert span_totals() == {}
 
 
