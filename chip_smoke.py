@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-tiers PARENT_FRAME_EVOLVE_CU
+    python3 chip_smoke.py --k5
 
 The second form runs phases 1-2 and then only K2's tier timings of phase
 22, each in turns with the build of PARENT_FRAME_EVOLVE_CU (a copy of
 ``csrc/frame_evolve.cu`` from before its tiers above 10 qubits were
-redesigned, whose C entry point takes no pass records).
+redesigned, whose C entry point takes no pass records). The third runs
+phases 1-2 and then only phase 3b.
 
 Phases, each of which exits non-zero on failure:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
@@ -15,8 +17,9 @@ Phases, each of which exits non-zero on failure:
 2. build the kernels at once from ``mlqem_tpu_torch/csrc/``:
    ``evolve.cu`` (K1), ``frame_evolve.cu`` (K2), ``fused_step.cu`` (K3's
    chip tier), ``fused_step_wide.cu`` (K3's wide tier and its masks) and
-   ``wht.cu`` (K4), one ``nvcc`` each; every function of K1, K2 and K3
-   must show 0 bytes of register spills;
+   ``wht.cu`` (K4) and ``propagate_frames.cu`` (K5), one ``nvcc`` each;
+   every function of K1, K2, K3 and K5 must show 0 bytes of register
+   spills;
 3. hold K1 (``csrc/evolve.cu``) against its plain PyTorch version on the
    card from |0…0⟩ (nq 6, 8, 10) and from random unit-norm states (nq 1,
    4, 5, 6, 10, 11, 13: each side of the kernel's register, shuffle and
@@ -24,13 +27,18 @@ Phases, each of which exits non-zero on failure:
    outputs there equal, bit for bit, to those of K1 before its device code
    moved into ``csrc/kicked_regs.cuh`` (a SHA-256 of them); and time both
    at the main path's noisy-arm shape (nq=10, 524,288 rows);
+3b. hold K5, the frame pass (``csrc/propagate_frames.cu``), against its
+   plain version, equal bit for bit, and time both
+   (CUDA events, plain, kernel, kernel, plain) beside the kernel's bytes
+   bound at the labels shape (nq 10, 524,288 rows, 4 steps) and at nf1's
+   (demo1's w=21 window of qubit 11, 128 rows, 10 steps);
 4. run the kicked-Ising label generator at the bench configuration
    (``configurable_device(10, seed=0)``, 4 steps, dt 0.25, 16,384 circuits
-   × 32 trajectories, 10,000 shots) through the kernel: the launch count
-   must rise by 2, the labels must be finite, of shape (16384, 10) and in
-   [−1, 1], the ideal labels must match an independent numpy statevector
-   simulation, and, with ``shots=None``, the kernel path must match the
-   plain path to 1e-5;
+   × 32 trajectories, 10,000 shots) through the kernels: 2 launches of K1,
+   1 of K5 and no other kernel, the labels must be finite, of shape
+   (16384, 10) and in [−1, 1], the ideal labels must match an independent
+   numpy statevector simulation, and, with ``shots=None``, the kernel path
+   must match the plain path to 1e-5;
 5. time whole batches (pairs/min), the stages, and peak device memory;
 6. hold K2 against its plain PyTorch version (max|Δ| ≤ 2e-5) on random
    plans of every op kind and on plans that move every qubit with every
@@ -68,14 +76,14 @@ Phases, each of which exits non-zero on failure:
 10. run the light-cone cross-check (``lightcone_crosscheck``: 100 qubits,
     6 steps, w=13, 4096 realizations) against the Pauli-propagation audit
     values that ship in ``docs/demos/results/audit_values_tpu.npz``:
-    90 K3 launches, ideal ≤ 1e-3, noisy arms ≤ 0.03;
+    90 K3 launches and 10 of K5, ideal ≤ 1e-3, noisy arms ≤ 0.03;
 11. run demo1's configuration (``LightconeIsing``: 100 qubits, 10 steps,
     w=21) through K3's wide tier: kernel path vs plain path on the same
     draws (≤ 1e-5); the w=21 ideal arm vs the w=13 one over steps 1-6
     (≤ 1e-5); one call of each arm (nf1: 1024 realizations × 49 shots with
-    the ideal arm, 450 K3 launches and 45 of ``step_masks``; nf3: 256 ×
-    196, 100 and 10; no K4), TREX-corrected values inside their readout
-    bounds;
+    the ideal arm, 450 K3 launches, 45 of ``step_masks`` and 40 of K5;
+    nf3: 256 × 196, 100, 10 and 10; no K4), TREX-corrected values inside
+    their readout bounds;
 12. time the light-cone path: seconds per circuit for each arm, the stages
     of one window chunk (frame pass, K3 steps, ⟨Z⟩, shots), peak device
     memory, and the artifact's derived engine time;
@@ -102,7 +110,7 @@ Phases, each of which exits non-zero on failure:
 17. ``KickedIsingEngine`` above K1's width: at nq 14 through K3's chip
     tier and at nq 20 through its wide tier (a step at a time), each
     against the plain path on the same draws (``shots=None``, ≤ 1e-5) with
-    its launch counts; then ``zne_sweep_ising`` at its defaults (BASELINE
+    its launch counts (K5 once a batch); then ``zne_sweep_ising`` at its defaults (BASELINE
     config 4: nq 20, 4 steps, 16 J values, 64 trajectories, 10,000 shots,
     noise factors (1, 3)) through K3, its ideal labels for 4 J values
     against a complex128 statevector (≤ 1e-5); seconds, peak memory,
@@ -117,7 +125,8 @@ Phases, each of which exits non-zero on failure:
 19. ``demo1_zne_mimic_100q`` (BASELINE config 5) at 100 qubits, 10 steps,
     w=21 through K3, with cut circuit and realization counts (printed): its
     ideal rows against ``LightconeIsing.ideal_stepwise`` (≤ 1e-6), the J00
-    row against cos(s·π/2) (≤ 1e-5); seconds, peak memory, RMSEs;
+    row against cos(s·π/2) (≤ 1e-5); its launches (K3, the masks and K5,
+    once a noisy arm); seconds, peak memory, RMSEs;
 20. the sparse Pauli-propagation engine (``PauliPropagatorIsing``, plain
     torch, no kernel): (a) card vs CPU at nq 40 (two words a term), 3
     steps, ideal/nf1/nf3, at a K that keeps every term (≤ 1e-6, nothing
@@ -128,7 +137,7 @@ Phases, each of which exits non-zero on failure:
     131072), its per-step drifts beside ``truncation_audit_tpu.json``'s, the
     top-pair drift ≤ 1e-3 through step 5; (c) ``lightcone_crosscheck(
     reference=None, max_terms=131072)`` at phase 10's configuration: passes,
-    90 K3 launches, beside phase 10's differences; (d)
+    90 K3 launches and 10 of K5, beside phase 10's differences; (d)
     ``demo1_zne_mimic_100q(engine="pauli_prop")`` at demo1's physics with
     phase 19's cut circuit counts: the J00 row against cos(s·π/2) (≤ 1e-5),
     RMSEs;
@@ -170,8 +179,8 @@ Phases, each of which exits non-zero on failure:
     engine at the bench configuration and the frame pipeline at 8192
     circuits through ``generate(mesh=)``: equal to the unsharded call on
     the same seed (≤ 1e-6 at ``shots=None``; the shots too), the same
-    launches (2 of K1, 1 of K2) with the counts set to 0 just before the
-    sharded call, and each batch's time beside the unsharded one;
+    launches (2 of K1 and 1 of K5; 1 of K2) with the counts set to 0 just
+    before the sharded call, and each batch's time beside the unsharded one;
 27. the amplitude-sharded statevector on the one-rank mesh at
     ``SV_NQ`` qubits (a depth-2 Ising circuit) against ``statevector``
     (state and ⟨Z_q⟩ ≤ 1e-5), with times and peak memory; on 8 gloo CPU
@@ -359,6 +368,7 @@ def _counted():
     """Every kernel wrapper, by its kernel's name."""
     import mlqem_tpu_torch.ops.kernels.evolve as kev
     import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+    import mlqem_tpu_torch.ops.kernels.frames as kfr
     import mlqem_tpu_torch.ops.kernels.fused_step as kfs
     import mlqem_tpu_torch.ops.kernels.wht as kwht
 
@@ -366,7 +376,8 @@ def _counted():
             "evolve_frame_marginals": kfe.evolve_frame_marginals,
             "fused_trotter_step": kfs.fused_trotter_step,
             "step_masks": kfs.step_masks,
-            "wht_planes": kwht.wht_planes}
+            "wht_planes": kwht.wht_planes,
+            "propagate_frames": kfr.propagate_frames}
 
 
 def reset_launches():
@@ -398,6 +409,77 @@ def time_kernel_and_plain(run_kernel, run_plain, plain_reps):
     kernel_ms = [time_ms(run_kernel, 5), time_ms(run_kernel, 5)]
     plain_ms.append(time_ms(run_plain, plain_reps))
     return min(kernel_ms), min(plain_ms), kernel_ms, plain_ms
+
+
+def k5_phase(card, cuda):
+    """Phase 3b: K5 against its plain version, bit for bit, and both timed,
+    at the labels cell's shape and at nf1's; returns the labels shape's
+    record, whose launches phase 4 counts on the main path."""
+    import numpy as np
+    import torch
+
+    import mlqem_tpu_torch.ops.kernels.frames as kfr
+    from mlqem_tpu_torch import LightconeIsing, configurable_device
+
+    chain = ([(q, q + 1) for q in range(0, NQ - 1, 2)]
+             + [(q, q + 1) for q in range(1, NQ - 1, 2)])
+    tw = LightconeIsing(configurable_device(LC_NQ, seed=0), nq=LC_NQ,
+                        steps=LC_STEPS, device="cpu", noise=False
+                        ).window_tables(LC_QUBITS[0])
+    records = {}
+    for name, nq, bonds, rows, steps, reps in (
+            ("labels", NQ, chain, NOISY_ROWS, STEPS, (5, 100)),
+            ("nf1", tw["w"], tw["bonds"], LC_CHUNK, LC_STEPS, (5, 200))):
+        nb = len(bonds)
+        rng = np.random.default_rng(rows)
+        draws = torch.as_tensor(rng.integers(
+            0, 16, size=(steps, rows, nb, 2), dtype=np.int32), device=cuda)
+        before = kfr.propagate_frames.launches
+        got = kfr.propagate_frames(draws, bonds, nq)
+        launches = kfr.propagate_frames.launches - before
+        want = kfr.propagate_frames_reference(draws, bonds, nq)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"3b: {name}: K5 differs from its plain version")
+        del got, want
+
+        def run_kernel():
+            kfr.propagate_frames(draws, bonds, nq)
+
+        def run_plain():
+            kfr.propagate_frames_reference(draws, bonds, nq)
+
+        run_kernel()
+        plain_ms = [time_ms(run_plain, reps[0])]
+        kernel_ms = [time_ms(run_kernel, reps[1]),
+                     time_ms(run_kernel, reps[1])]
+        plain_ms.append(time_ms(run_plain, reps[0]))
+        n_bytes = 4 * (draws.numel() + rows * steps * (nq + nb) + steps * rows)
+        k5_bound = bound(n_bytes, 0)
+        print(f"K5 propagate_frames ({name}: nq={nq} bonds={nb} rows={rows} "
+              f"steps={steps}, first bond {bonds[0]}): equal to the plain "
+              f"version bit for bit, {launches} launch; kernel "
+              f"{min(kernel_ms):.4f} ms a call, {reps[1]} back to back "
+              f"(runs {[round(x, 4) for x in kernel_ms]}), plain PyTorch "
+              f"{min(plain_ms):.3f} ms (runs "
+              f"{[round(x, 3) for x in plain_ms]}); bound "
+              f"{k5_bound[0]:.4f} ms ({k5_bound[1]}, {n_bytes / 1e6:.1f} MB) "
+              f"[{card}]")
+        records[name] = {"launches": None, "max_abs_err": 0.0,
+                         "ms": min(kernel_ms), "plain_ms": min(plain_ms),
+                         "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
+                         "library_ms": None}
+        del draws
+    return records["labels"]
+
+
+def k5_record(rec):
+    """K5's entry of the kernels' JSON record: it replaces no Pallas
+    kernel, only the JAX package's jnp scan."""
+    return {"name": "propagate_frames", "route": "cuda",
+            "source": "mlqem_tpu_torch/csrc/propagate_frames.cu",
+            "replaces": "none (jnp lax.scan, "
+                        "mlqem_tpu/ops/kicked_ising.py:205-262)", **rec}
 
 
 def time_batches(generate, J, rng, card, label):
@@ -1272,8 +1354,11 @@ def lightcone_phases(card, cuda):
           f"{xck['noisy_tol']}), passed={xck['passed']}; launches {counts}; "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
     require(xck["passed"], "the light-cone cross-check failed")
-    require(counts == {**{k: 0 for k in counts}, "fused_trotter_step": 90},
-            f"expected 90 K3 launches and no other, got {counts}")
+    # 5 windows: the ideal arm and one chunk of each noisy arm (nf1, nf3),
+    # a K3 launch a step, K5 once a chunk
+    want = {**{k: 0 for k in counts}, "fused_trotter_step": 90,
+            "propagate_frames": 10}
+    require(counts == want, f"cross-check: expected launches {want}")
     k3["launches"] = counts["fused_trotter_step"]
     RESULTS["crosscheck"] = xck
 
@@ -1337,12 +1422,14 @@ def lightcone_phases(card, cuda):
     c3 = read_launches()
     print(f"demo1 circuit J={J50[1]:.4f}: nf1 arm launches {c1}; nf3 arm "
           f"launches {c3}")
-    # 5 windows x (the chunks, and nf1's ideal arm): a K3 launch a step and
-    # the masks once a chunk; no K4
-    for arm, c, chunks in (("nf1", c1, NF1_TRAJ // LC_CHUNK + 1),
-                           ("nf3", c3, NF3_TRAJ // LC_CHUNK)):
+    # 5 windows x (the noisy chunks, and nf1's ideal arm): a K3 launch a
+    # step and the masks once a chunk, K5 once a noisy chunk; no K4
+    for arm, c, noisy_chunks, chunks in (
+            ("nf1", c1, NF1_TRAJ // LC_CHUNK, NF1_TRAJ // LC_CHUNK + 1),
+            ("nf3", c3, NF3_TRAJ // LC_CHUNK, NF3_TRAJ // LC_CHUNK)):
         want = {**{k: 0 for k in c}, "step_masks": 5 * chunks,
-                "fused_trotter_step": LC_STEPS * 5 * chunks}
+                "fused_trotter_step": LC_STEPS * 5 * chunks,
+                "propagate_frames": 5 * noisy_chunks}
         require(c == want, f"{arm} launches {c}, expected {want}")
     k3_wide["launches"] = c1["fused_trotter_step"] + c3["fused_trotter_step"]
     masks["launches"] = c1["step_masks"] + c3["step_masks"]
@@ -2211,9 +2298,10 @@ def kicked_wide_phase(card, cuda):
         err = max(float(np.abs(a - b).max())
                   for a, b in zip(out[None], out[False]))
         # noisy and ideal arms: a K3 launch a step, the wide tier's masks
-        # once an arm
+        # once an arm; K5 once
         want = {**{k: 0 for k in counts[None]},
-                "fused_trotter_step": 2 * steps, "step_masks": 2 * masks}
+                "fused_trotter_step": 2 * steps, "step_masks": 2 * masks,
+                "propagate_frames": 1}
         print(f"KickedIsingEngine nq={nq} ({WIDE_J} circuits x {WIDE_TRAJ} "
               f"trajectories, {steps} steps, shots=None): card path vs plain "
               f"path on the same draws max|Δ|={err:.3e}; launches "
@@ -2238,7 +2326,8 @@ def kicked_wide_phase(card, cuda):
           f" peak {peak:.2f} GiB; launches {counts}; RMSE noisy "
           f"{sweep['rmse_noisy']:.5f}, ZNE {sweep['rmse_zne']:.5f} [{card}]")
     want = {**{k: 0 for k in counts},       # engines x arms (x steps)
-            "fused_trotter_step": 2 * 2 * 4, "step_masks": 2 * 2}
+            "fused_trotter_step": 2 * 2 * 4, "step_masks": 2 * 2,
+            "propagate_frames": 2}
     require(counts == want, f"zne sweep: expected launches {want}")
     for k in ("ideal", "noisy", "zne"):
         require(sweep[k].shape == (ZNE_J, ZNE_NQ)
@@ -2385,9 +2474,9 @@ def demo1_phase(card, cuda):
           f"{D1_SHOTS} shots each): {secs:.2f} s; peak {peak:.2f} GiB; "
           f"launches {counts} [{card}]")
     # 5 windows x (nf1 + ideal, nf3; J00 alike): a K3 launch a step, the
-    # masks once an arm
+    # masks once an arm, K5 once a noisy arm
     want = {**{k: 0 for k in counts}, "fused_trotter_step": Q * D1_STEPS * 6,
-            "step_masks": Q * 6}
+            "step_masks": Q * 6, "propagate_frames": Q * 4}
     require(counts == want, f"demo1: expected launches {want}")
     print("demo1 RMSE vs ZNE: noisy {:.5f}, mimic {:.5f}; vs ideal: noisy "
           "{:.5f}, ZNE {:.5f}, mimic {:.5f}".format(
@@ -2531,8 +2620,9 @@ def pauli_prop_phase(card, cuda):
           f"launches {counts}; {secs:.2f} s [{card}]")
     require(xck["passed"] and xck["config"]["reference"] == "recomputed",
             "20c: the cross-check failed on its recomputed reference")
-    require(counts["fused_trotter_step"] == 90 and counts["wht_planes"] == 0,
-            f"20c: expected 90 K3 and 0 K4 launches, got {counts}")
+    require(counts["fused_trotter_step"] == 90 and counts["wht_planes"] == 0
+            and counts["propagate_frames"] == 10,
+            f"20c: expected 90 K3, 0 K4 and 10 K5 launches, got {counts}")
     phase_end("20c", t0, card)
 
     # -- 20d. demo1 through the Pauli-propagation engine ---------------------
@@ -2955,16 +3045,16 @@ def mesh_phase(card, cuda):
     device_model = configurable_device(NQ, seed=0)
     rng = np.random.default_rng(26)
     cases = (
-        ("kicked", BATCH, "evolve_fused", 2,
+        ("kicked", BATCH, {"evolve_fused": 2, "propagate_frames": 1},
          lambda shots: KickedIsingEngine(device_model, nq=NQ, steps=STEPS,
                                          dt=DT, n_traj=N_TRAJ, shots=shots,
                                          device=cuda)),
-        ("frame", FRAME_BATCH, "evolve_frame_marginals", 1,
+        ("frame", FRAME_BATCH, {"evolve_frame_marginals": 1},
          lambda shots: IsingLabelPipeline(device_model, nq=NQ, steps=STEPS,
                                           dt=DT, h=1.0, n_traj=N_TRAJ,
                                           method="frame", shots=shots,
                                           device=cuda)))
-    for name, batch, kernel, n_launch, make in cases:
+    for name, batch, want_launches, make in cases:
         J = rng.uniform(0.05, 0.6, size=batch).astype(np.float32)
         for shots in (None, SHOTS):
             eng = make(shots)
@@ -2978,9 +3068,9 @@ def mesh_phase(card, cuda):
                   f"shots={shots}: generate(mesh=) vs unsharded max|Δ| = "
                   f"{err:.3e}; launches on the dp path {launches}")
             require(err <= 1e-6, f"26: {name} sharded vs unsharded {err}")
-            require(launches[kernel] == n_launch and sum(
-                launches.values()) == n_launch,
-                f"26: {name} dp path launches {launches}")
+            require(launches == {**{k: 0 for k in launches},
+                                 **want_launches},
+                    f"26: {name} dp path launches {launches}")
         times = {"unsharded": [], "mesh": []}
         for rep in range(4):               # unsharded, mesh, mesh, unsharded
             for key in (("unsharded", "mesh") if rep % 2 == 0
@@ -3175,6 +3265,7 @@ def main():
 
     import mlqem_tpu_torch.ops.kernels.evolve as kev
     import mlqem_tpu_torch.ops.kernels.frame_evolve as kfe
+    import mlqem_tpu_torch.ops.kernels.frames as kfr
     import mlqem_tpu_torch.ops.kernels.fused_step as kfs
     import mlqem_tpu_torch.ops.kernels.wht as kwht
     from mlqem_tpu_torch import KickedIsingEngine, configurable_device
@@ -3190,7 +3281,8 @@ def main():
     loaders = {"evolve": kev.load_library, "frame_evolve": kfe.load_library,
                "fused_step": kfs.load_library,
                "fused_step_wide": kfs.load_wide_library,
-               "wht": kwht.load_library}
+               "wht": kwht.load_library,
+               "propagate_frames": kfr.load_library}
     with ThreadPoolExecutor(len(loaders)) as pool:
         builds = dict(zip(loaders, pool.map(timed_build, loaders.values())))
     print(f"build: {', '.join(n + '.cu' for n in builds)} built and loaded "
@@ -3208,7 +3300,7 @@ def main():
                         spills.append("0 bytes spill stores, 0 bytes spill "
                                       "loads" in line)
         if name in ("evolve", "frame_evolve", "fused_step",
-                    "fused_step_wide"):
+                    "fused_step_wide", "propagate_frames"):
             require(spills and all(spills), f"{name}.cu spills registers "
                     f"({spills.count(False)} of {len(spills)} functions)")
         print(f"  {name}.cu: {spills.count(True)} of {len(spills)} functions "
@@ -3217,6 +3309,10 @@ def main():
         require(len(sys.argv) == 3, "usage: chip_smoke.py --k2-tiers "
                 "PARENT_FRAME_EVOLVE_CU")
         k2_tier_times(card, cuda, parent=parent_k2(sys.argv[2]))
+        print(card)
+        return
+    if sys.argv[1:] == ["--k5"]:
+        print(json.dumps({"kernels": [k5_record(k5_phase(card, cuda))]}))
         print(card)
         return
 
@@ -3264,6 +3360,9 @@ def main():
           f"{p_ms:.3f} ms (runs {[round(x, 3) for x in plain_ms]}); bound "
           f"{k1_bound[0]:.3f} ms ({k1_bound[1]}) [{card}]")
 
+    # -- 3b. K5, the frame pass ---------------------------------------------------
+    k5 = k5_phase(card, cuda)
+
     # -- 4. main path ------------------------------------------------------------
     device_model = configurable_device(NQ, seed=0)
     t0 = time.perf_counter()
@@ -3275,10 +3374,14 @@ def main():
     reset_launches()
     ideal, noisy = eng.generate(J, seed=0)
     torch.cuda.synchronize()
-    launches = kev.evolve_fused.launches
+    counts = read_launches()
     print(f"main path: 1 batch of {BATCH} circuits x {N_TRAJ} trajectories, "
-          f"{SHOTS} shots: launches {read_launches()}")
-    require(launches == 2, f"expected 2 kernel launches, got {launches}")
+          f"{SHOTS} shots: launches {counts}")
+    want = {**{k: 0 for k in counts}, "evolve_fused": 2,
+            "propagate_frames": 1}
+    require(counts == want, f"main path: expected launches {want}")
+    launches = counts["evolve_fused"]
+    k5["launches"] = counts["propagate_frames"]
     for name, lab in (("ideal", ideal), ("noisy", noisy)):
         require(lab.shape == (BATCH, NQ), f"{name} shape {lab.shape}")
         require(bool(np.isfinite(lab).all()), f"{name} has non-finite values")
@@ -3387,7 +3490,7 @@ def main():
         {"name": name, "route": "cuda",
          "source": f"mlqem_tpu_torch/csrc/{src}",
          "replaces": f"mlqem_tpu/ops/pallas/{tpu}", **rec}
-        for name, src, tpu, rec in kernels]}
+        for name, src, tpu, rec in kernels] + [k5_record(k5)]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ as hand-written CUDA kernels for Hopper: the kicked-Ising evolution
 (``csrc/evolve.cu``), the generic Pauli-frame evolution
 (``csrc/frame_evolve.cu``), one Trotter step (``csrc/fused_step.cu``) and
 the Walsh–Hadamard transform over device-memory planes (``csrc/wht.cu``),
-the last two on the light-cone engine's path; the exact density-matrix
+the last two on the light-cone engine's path; one CUDA kernel has no TPU
+kernel behind it: the Pauli-frame pass of the kicked-Ising and light-cone
+engines (``csrc/propagate_frames.cu``), a ``lax.scan`` in the JAX package;
+the exact density-matrix
 engines, the sparse Pauli-propagation engine, the stabilizer tableau, the
 Estimator primitives, digital ZNE and the learning stack (datasets, the
 paper's GNN, the MLP/linear/forest regressors, the trainer and the

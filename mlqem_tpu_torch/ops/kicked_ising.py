@@ -18,7 +18,8 @@ windows through the same :func:`kicked_steps`.
 The stages of :meth:`KickedIsingEngine.run`:
 (b) the frame pass: draw the noise Paulis (:meth:`~KickedIsingEngine.
 sample_draws`) and propagate the frames (:meth:`~KickedIsingEngine.
-frame_signs`), as int32 bit operations over all trajectories at once;
+frame_signs`): :func:`~.kernels.frames.propagate_frames` (K5), one launch
+over all trajectories, which the light-cone engine calls too;
 (c) the evolution (:meth:`~KickedIsingEngine.evolve`);
 (d) ⟨Z⟩, readout confusion and the frame flip (:meth:`~KickedIsingEngine.
 trajectory_z`), then binomial shots (:meth:`~KickedIsingEngine.
@@ -42,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,12 +55,15 @@ from ..utils.profiling import span
 from . import sampling
 from .density import readout_affine
 from .kernels import evolve as k_evolve
+from .kernels import frames as k_frames
 from .kernels import fused_step as k_step
 from .kernels.wht import check_ieee_matmul, hadamard_dense, wht
 from .trajectory import compose_pauli_channel, pauli_channel_probs
 
 __all__ = ["EngineTables", "KickedIsingEngine", "kicked_steps",
            "propagate_frames", "wht", "wht_mm"]
+
+propagate_frames = k_frames.propagate_frames
 
 def _bonds(nq: int) -> Tuple[List[Tuple[int, int]], List[Tuple[int, int]]]:
     even = [(q, q + 1) for q in range(0, nq - 1, 2)]
@@ -113,58 +117,6 @@ def wht_mm(state: torch.Tensor, nq: int, radix: int = 7) -> torch.Tensor:
     if state.is_complex():
         return torch.complex(real_pass(state.real), real_pass(state.imag))
     return real_pass(state)
-
-
-def propagate_frames(draws: torch.Tensor, bonds: Sequence[Tuple[int, int]],
-                     nq: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Commute the drawn noise Paulis to the end of the circuit.
-
-    draws [steps, rows, n_bonds, 2]: the Pauli 4·p_a + p_b after each of a
-    bond's two CX, bonds in application order. Returns f32 ±1 kick signs
-    [rows, steps, nq] (each step's RX flips where the frame has Z/Y), bond
-    signs [rows, steps, n_bonds] (a bond's RZ flips where the frame has X/Y
-    on its target) and the frame's int32 X mask after each step
-    [steps, rows]. The frame is int32 X and Z bit masks over the qubits.
-    """
-    S, rows, nb, _ = draws.shape
-    pa, pb = draws // 4, draws % 4
-    a_idx = torch.tensor([a for a, _ in bonds], dtype=torch.int32,
-                         device=draws.device)[:, None]
-    b_idx = torch.tensor([b for _, b in bonds], dtype=torch.int32,
-                         device=draws.device)[:, None]
-    # pauli code p (0..3 per qubit): x-part p∈{1,2}, z-part p∈{2,3}
-    noise_x = ((((pa == 1) | (pa == 2)).int() << a_idx)
-               | (((pb == 1) | (pb == 2)).int() << b_idx))
-    noise_z = ((((pa == 2) | (pa == 3)).int() << a_idx)
-               | (((pb == 2) | (pb == 3)).int() << b_idx))
-    del pa, pb
-    qs = torch.arange(nq, dtype=torch.int32, device=draws.device)
-    x = torch.zeros(rows, dtype=torch.int32, device=draws.device)
-    z = torch.zeros_like(x)
-    kick = torch.empty((rows, S, nq), dtype=torch.float32,
-                       device=draws.device)
-    bond = torch.empty((rows, S, nb), dtype=torch.float32,
-                       device=draws.device)
-    x_after = torch.empty((S, rows), dtype=torch.int32, device=draws.device)
-    for s in range(S):
-        # rx(θh) on every qubit flips iff the frame has Z/Y there
-        kick[:, s] = 1 - 2 * ((z[:, None] >> qs) & 1)
-        for k, (a, b) in enumerate(bonds):
-            # first CX(a, b): X_a → X_a X_b, Z_b → Z_a Z_b; then noise
-            x ^= ((x >> a) & 1) << b
-            z ^= ((z >> b) & 1) << a
-            x ^= noise_x[s, :, k, 0]
-            z ^= noise_z[s, :, k, 0]
-            # rz(θJ) on target b flips iff the frame has X/Y on b
-            bond[:, s, k] = 1 - 2 * ((x >> b) & 1)
-            # second CX(a, b) and its noise
-            x ^= ((x >> a) & 1) << b
-            z ^= ((z >> b) & 1) << a
-            x ^= noise_x[s, :, k, 1]
-            z ^= noise_z[s, :, k, 1]
-        x_after[s] = x
-    return kick, bond, x_after
 
 
 def basis_planes(rows: int, nq: int, device: torch.device
@@ -361,10 +313,13 @@ class KickedIsingEngine:
         bond's two CX). Returns f32 ±1 kick signs [rows, steps·nq], bond
         signs [rows, steps·n_bonds] (the kernel's layout) and the final
         X-flip signs [rows, nq] that correct ⟨Z_q⟩
-        (:func:`propagate_frames`).
+        (:func:`~.kernels.frames.propagate_frames`, K5; its plain version
+        with ``use_kernel=False``).
         """
         S, rows, nb, _ = draws.shape
-        kick, bond, x_after = propagate_frames(draws, self.bonds, self.nq)
+        fn = (k_frames.propagate_frames if self._use_kernel
+              else k_frames.propagate_frames_reference)
+        kick, bond, x_after = fn(draws, self.bonds, self.nq)
         qs = torch.arange(self.nq, dtype=torch.int32, device=draws.device)
         flip = (1 - 2 * ((x_after[-1][:, None] >> qs) & 1)).float()
         return (kick.reshape(rows, S * self.nq), bond.reshape(rows, S * nb),

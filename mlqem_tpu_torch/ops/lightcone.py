@@ -43,7 +43,8 @@ from ..device.noise import NoiseModel
 from . import sampling
 from .density import readout_affine
 from ..utils.profiling import span
-from .kicked_ising import basis_planes, kicked_steps, propagate_frames
+from .kernels import frames as k_frames
+from .kicked_ising import basis_planes, kicked_steps
 from .trajectory import compose_pauli_channel, pauli_channel_probs
 
 
@@ -166,8 +167,12 @@ class LightconeIsing:
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The window's frames from draws [S, rows, nb, 2]: kick signs
         [rows, S, w], bond signs [rows, S, nb] and the measurement flip of
-        the observable after each step [S, rows], all f32 ±1."""
-        kick, bond, x_after = propagate_frames(draws, tw["bonds"], tw["w"])
+        the observable after each step [S, rows], all f32 ±1
+        (:func:`~.kernels.frames.propagate_frames`, K5; its plain version
+        with ``use_kernel=False``)."""
+        fn = (k_frames.propagate_frames if self.use_kernel is not False
+              else k_frames.propagate_frames_reference)
+        kick, bond, x_after = fn(draws, tw["bonds"], tw["w"])
         flip = (1 - 2 * ((x_after >> tw["obs"]) & 1)).float()
         return kick, bond, flip
 

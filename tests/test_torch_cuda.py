@@ -17,11 +17,14 @@ from mlqem_tpu_torch import (IsingLabelPipeline, KickedIsingEngine,
 from mlqem_tpu_torch.convert import engine_tables_from_numpy
 from mlqem_tpu_torch.ops.kernels import evolve as kev
 from mlqem_tpu_torch.ops.kernels import frame_evolve as fe
+from mlqem_tpu_torch.ops.kernels import frames as kfr
 from mlqem_tpu_torch.ops.kernels import fused_step as kfs
 from mlqem_tpu_torch.ops.kernels import wht as kwht
 from mlqem_tpu_torch.ops.frame_trajectory import frame_plan
 from mlqem_tpu_torch.ops.kicked_ising import _sign_tables
 from mlqem_tpu_torch.parallel.datagen import make_ising_template
+
+from lightcone_windows import window_bonds
 
 pytestmark = pytest.mark.cuda
 
@@ -672,6 +675,129 @@ def test_lightcone_kernel_matches_plain_path(nq, steps, cuda_device):
     assert launches[1] == (0, 0)
     for got, want in zip(*out):
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _chain_bonds(nq):
+    """The kicked engine's bond order: even bonds, then odd."""
+    return ([(q, q + 1) for q in range(0, nq - 1, 2)]
+            + [(q, q + 1) for q in range(1, nq - 1, 2)])
+
+
+# (nq, bonds, rows, steps) of the frame pass: the labels cell's shape, nf1's
+# windows at w 13, 17, 21 (starts 0, odd and even), the widest engine, rows
+# that are no multiple of the kernel's 128-row block
+K5_CASES = {
+    "labels": lambda: (10, _chain_bonds(10), 524288, 4),
+    "w13-start0": lambda: (*window_bonds(6, 3), 128, 10),
+    "w13-start5": lambda: (*window_bonds(6, 11), 128, 10),
+    "w17-start0": lambda: (*window_bonds(8, 2), 128, 10),
+    "w17-start46": lambda: (*window_bonds(8, 54), 128, 10),
+    "w21-start0": lambda: (*window_bonds(10, 0), 128, 10),
+    "w21-start1": lambda: (*window_bonds(10, 11), 128, 10),
+    "w21-start44": lambda: (*window_bonds(10, 54), 128, 10),
+    "nq30-1step": lambda: (30, _chain_bonds(30), 1000, 1),
+    "ragged": lambda: (10, _chain_bonds(10), 1000, 3),
+    "one-row": lambda: (5, _chain_bonds(5), 1, 3),
+    "no-bonds": lambda: (1, [], 200, 2),
+}
+
+
+def _k5_draws(steps, rows, nb, device, seed):
+    """Uniform Paulis, the first 16 of them 0..15 in turn: every Pauli
+    pair appears."""
+    rng = np.random.default_rng(seed)
+    draws = rng.integers(0, 16, size=(steps, rows, nb, 2), dtype=np.int32)
+    flat = draws.reshape(-1)
+    flat[:min(16, flat.size)] = np.arange(min(16, flat.size))
+    return torch.as_tensor(draws, device=device)
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_frames_kernel_matches_reference(case, cuda_device):
+    nq, bonds, rows, steps = K5_CASES[case]()
+    assert case != "w21-start1" or bonds[0] == (1, 2)
+    draws = _k5_draws(steps, rows, len(bonds), cuda_device, seed=rows + nq)
+    if draws.numel() >= 16:
+        assert torch.unique(draws).numel() == 16
+    before = kfr.propagate_frames.launches
+    got = kfr.propagate_frames(draws, bonds, nq)
+    want = kfr.propagate_frames_reference(draws, bonds, nq)
+    torch.cuda.synchronize()
+    assert kfr.propagate_frames.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    # a step's kick signs come before its bonds: the first step's are +1
+    if rows >= 128 and bonds:
+        assert (got[1] == -1).any()
+        assert steps == 1 or (got[0] == -1).any()
+
+
+def test_frame_signs_launch_k5_once_a_call(cuda_device):
+    """Each engine's frame_signs is one K5 launch, equal bit for bit to the
+    same engine's use_kernel=False frame_signs on the same draws; a whole
+    call launches K5 once per frame_signs call."""
+    nq, S = 10, 4
+    engines = [KickedIsingEngine(configurable_device(nq, seed=0), nq=nq,
+                                 steps=S, device=cuda_device, n_traj=8,
+                                 shots=None, use_kernel=k)
+               for k in (None, False)]
+    draws = _k5_draws(S, 4096, nq - 1, cuda_device, seed=1)
+    cones = [LightconeIsing(configurable_device(40, seed=0), nq=40, steps=6,
+                            device=cuda_device, n_traj=8, t_chunk=4,
+                            shots=None, use_kernel=k) for k in (None, False)]
+    tw = cones[0].window_tables(11)
+    lc_draws = _k5_draws(6, 512, len(tw["bonds"]), cuda_device, seed=2)
+    for (kernel, plain), args in ((engines, (draws,)),
+                                  (cones, (lc_draws, tw))):
+        before = kfr.propagate_frames.launches
+        got = kernel.frame_signs(*args)
+        assert kfr.propagate_frames.launches == before + 1
+        want = plain.frame_signs(*args)
+        torch.cuda.synchronize()
+        assert kfr.propagate_frames.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+    calls = {"n": 0}
+
+    def counted(fn):
+        def wrapped(*a, **kw):
+            calls["n"] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    J = np.array([0.2, 0.45, 0.3], np.float32)
+    for eng, run in ((engines[0], lambda: engines[0].generate(J, seed=3)),
+                     (cones[0], lambda: cones[0].generate_stepwise(
+                         J, qubits=(0, 11, 20), seed=3))):
+        eng.frame_signs = counted(eng.frame_signs)
+        calls["n"] = 0
+        before = kfr.propagate_frames.launches
+        run()
+        assert calls["n"] > 0
+        assert kfr.propagate_frames.launches - before == calls["n"]
+
+
+def test_frames_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    bonds = _chain_bonds(6)
+    good = _k5_draws(2, 33, len(bonds), cuda_device, seed=0)
+    with pytest.raises(TypeError, match="int32"):
+        kfr.propagate_frames(good.long(), bonds, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfr.propagate_frames(good.transpose(0, 1), bonds, 6)
+    with pytest.raises(ValueError, match="shape"):
+        kfr.propagate_frames(good[..., :1], bonds, 6)
+    with pytest.raises(ValueError, match="shape"):
+        kfr.propagate_frames(good, bonds[:-1], 6)
+    with pytest.raises(ValueError, match="nq"):
+        kfr.propagate_frames(good[:, :, :1].contiguous(), [(0, 31)], 32)
+    with pytest.raises(ValueError, match="leaves"):
+        kfr.propagate_frames(good, bonds[:-1] + [(5, 6)], 6)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(good.numel() + 1, dtype=torch.int32,
+                           device=cuda_device)
+        kfr.propagate_frames(flat[1:].view(good.shape), bonds, 6)
 
 
 def test_density_engines_refuse_tf32(cuda_device):

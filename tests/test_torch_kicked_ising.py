@@ -21,6 +21,8 @@ import mlqem_tpu_torch.ops.sampling as t_sampling
 from mlqem_tpu_torch import KickedIsingEngine, configurable_device
 from mlqem_tpu_torch.convert import engine_tables_from_numpy
 
+from lightcone_windows import window_bonds
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -51,14 +53,25 @@ def _share_draws(monkeypatch, draws):
     monkeypatch.setattr(t_sampling, "sample_small_categorical", t_sample)
 
 
-@pytest.mark.parametrize("nq", [5, 10])
-def test_frame_signs_identical(nq, rng, monkeypatch):
+@pytest.mark.parametrize("nq, window", [(5, None), (10, None),
+                                        (13, (6, 13, 30))],
+                         ids=["5", "10", "w13-start7"])
+def test_frame_signs_identical(nq, window, rng, monkeypatch):
+    """The port's frame pass (the plain version, on the CPU) equals the JAX
+    engine's ``_frame_signs`` on shared draws: at the engine's own bonds,
+    and at a light-cone window's bond order (both engines' bonds replaced
+    by the window's)."""
     B, T, S = 4, 8, 3
     jeng = JEngine(j_configurable(nq, seed=0), nq=nq, steps=S, n_traj=T,
                    shots=None, use_pallas=False)
     eng = KickedIsingEngine(configurable_device(nq, seed=0), nq=nq,
                             steps=S, device="cpu", n_traj=T, shots=None)
-    draws = _draws(rng, S, B * T, nq - 1)
+    if window is not None:
+        w, bonds = window_bonds(*window)
+        assert w == nq and bonds[0] == (1, 2)
+        jeng.even_bonds, jeng.odd_bonds = list(bonds), []
+        eng.bonds = list(bonds)
+    draws = _draws(rng, S, B * T, len(eng.bonds))
     _share_draws(monkeypatch, draws)
     j_kick, j_bond, j_flip = (np.asarray(a) for a in
                               jeng._frame_signs(jax.random.PRNGKey(0), B))
@@ -70,6 +83,76 @@ def test_frame_signs_identical(nq, rng, monkeypatch):
         bond.numpy(), np.swapaxes(j_bond, 0, 1).reshape(B * T, -1))
     np.testing.assert_array_equal(flip.numpy(), j_flip)
     assert (kick == -1).any() and (bond == -1).any() and (flip == -1).any()
+
+
+def _bad_frame_args():
+    """(draws, bonds, nq, error) the frame pass refuses, each on its own."""
+    bonds = [(0, 1), (2, 3), (1, 2)]
+    good = torch.zeros((2, 5, 3, 2), dtype=torch.int32)
+    return {
+        "float-draws": (good.float(), bonds, 4, TypeError),
+        "int64-draws": (good.long(), bonds, 4, TypeError),
+        "non-contiguous": (torch.zeros((5, 2, 3, 2), dtype=torch.int32
+                                       ).transpose(0, 1), bonds, 4,
+                           ValueError),
+        "three-axes": (good.reshape(2, 5, 6), bonds, 4, ValueError),
+        "bond-count": (good, bonds[:2], 4, ValueError),
+        "last-axis": (torch.zeros((2, 5, 3, 3), dtype=torch.int32), bonds,
+                      4, ValueError),
+        "nq-above-31": (torch.zeros((1, 2, 1, 2), dtype=torch.int32),
+                        [(30, 31)], 32, ValueError),
+        "bond-off-chain": (good, [(0, 1), (2, 4), (1, 2)], 4, ValueError),
+        "negative-qubit": (good, [(0, 1), (-1, 0), (1, 2)], 4, ValueError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_frame_args()))
+def test_frame_pass_checks_its_arguments_on_the_cpu(case, monkeypatch):
+    """The wrapper refuses what the kernel does not take before it looks
+    at the device, so these CPU tensors reach neither kernel nor plain
+    version."""
+    from mlqem_tpu_torch.ops.kernels import frames as kfr
+
+    def refuse(*a, **kw):
+        raise AssertionError("the frame pass ran on arguments it refuses")
+
+    monkeypatch.setattr(kfr, "_launch", refuse)
+    monkeypatch.setattr(kfr, "propagate_frames_reference", refuse)
+    draws, bonds, nq, error = _bad_frame_args()[case]
+    with pytest.raises(error):
+        kfr.propagate_frames(draws, bonds, nq)
+
+
+@pytest.mark.parametrize("use_kernel", [None, False])
+def test_frame_signs_take_the_plain_version_on_the_cpu(use_kernel, rng,
+                                                       monkeypatch):
+    """On the CPU the engine's frame pass is the plain version, through the
+    wrapper by default and directly with use_kernel=False; the kernel's
+    entry is never reached and no launch is counted."""
+    from mlqem_tpu_torch.ops.kernels import frames as kfr
+
+    def refuse(*a, **kw):
+        raise AssertionError("the kernel entry was reached")
+
+    wrapper = kfr.propagate_frames
+    monkeypatch.setattr(kfr, "_launch", refuse)
+    monkeypatch.setattr(kfr, "load_library", refuse)
+    if use_kernel is False:
+        monkeypatch.setattr(kfr, "propagate_frames", refuse)
+    nq, S, rows = 6, 3, 40
+    eng = KickedIsingEngine(configurable_device(nq, seed=0), nq=nq, steps=S,
+                            device="cpu", shots=None, use_kernel=use_kernel)
+    draws = torch.as_tensor(_draws(rng, S, rows, nq - 1))
+    before = wrapper.launches
+    kick, bond, flip = eng.frame_signs(draws)
+    want_kick, want_bond, x_after = kfr.propagate_frames_reference(
+        draws, eng.bonds, nq)
+    assert torch.equal(kick, want_kick.reshape(rows, S * nq))
+    assert torch.equal(bond, want_bond.reshape(rows, -1))
+    qs = torch.arange(nq, dtype=torch.int32)
+    assert torch.equal(flip, (1 - 2 * ((x_after[-1][:, None] >> qs) & 1)
+                              ).float())
+    assert wrapper.launches == before
 
 
 @pytest.mark.parametrize("readout", [True, False])

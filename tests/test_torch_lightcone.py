@@ -229,6 +229,39 @@ def test_wide_window_through_the_emulated_passes(monkeypatch):
     np.testing.assert_allclose(ideal2, ideal, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("use_kernel", [None, False])
+def test_frame_signs_take_the_plain_version_on_the_cpu(use_kernel,
+                                                       monkeypatch):
+    """On the CPU a window's frame pass is the plain version, through the
+    wrapper by default and directly with use_kernel=False, at a window
+    that starts past qubit 0; the kernel's entry is never reached."""
+    from mlqem_tpu_torch.ops.kernels import frames as kfr
+
+    def refuse(*a, **kw):
+        raise AssertionError("the kernel entry was reached")
+
+    wrapper = kfr.propagate_frames
+    monkeypatch.setattr(kfr, "_launch", refuse)
+    monkeypatch.setattr(kfr, "load_library", refuse)
+    if use_kernel is False:
+        monkeypatch.setattr(kfr, "propagate_frames", refuse)
+    steps, rows = 4, 24
+    eng = LightconeIsing(configurable_device(20, seed=0), nq=20,
+                         steps=steps, device="cpu", use_kernel=use_kernel)
+    tw = eng.window_tables(9)
+    assert tw["start"] == 5 and tw["bonds"][0] == (1, 2)
+    draws = torch.as_tensor(_shape_draws((steps, rows, len(tw["bonds"]),
+                                          2)))
+    before = wrapper.launches
+    kick, bond, flip = eng.frame_signs(draws, tw)
+    want_kick, want_bond, x_after = kfr.propagate_frames_reference(
+        draws, tw["bonds"], tw["w"])
+    assert torch.equal(kick, want_kick) and torch.equal(bond, want_bond)
+    assert torch.equal(flip, (1 - 2 * ((x_after >> tw["obs"]) & 1)).float())
+    assert (flip == -1).any() and (bond == -1).any()
+    assert wrapper.launches == before
+
+
 def test_constructor_checks():
     dev = configurable_device(40, seed=1)
     with pytest.raises(ValueError, match="32 qubits"):
