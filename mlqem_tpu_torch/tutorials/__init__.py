@@ -8,7 +8,8 @@ and runs as::
 
     python -m mlqem_tpu_torch.tutorials.t01_ngem [--fast] [--device cpu]
 
-``fast`` is the script's ``MLQEM_TUT_FAST=1`` size.
+``fast`` is a smoke size, at most the script's ``MLQEM_TUT_FAST=1``
+size: enough to print the headline.
 """
 import argparse
 from typing import Callable

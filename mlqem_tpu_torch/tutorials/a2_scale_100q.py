@@ -13,7 +13,7 @@ from . import run
 
 
 def main(device="cuda", fast=False):
-    nq, K = (40, 2048) if fast else (100, 8192)
+    nq, K = (20, 512) if fast else (100, 8192)
     dev = configurable_device(nq, seed=0)
     pp = PauliPropagatorIsing(dev, nq=nq, steps=4, dt=0.5, h=0.66 * np.pi,
                               max_terms=K, device=device)

@@ -2,8 +2,8 @@
 
 Runner of ``docs/demos/demo1_rf_mimic_zne_100q.py``: the reference's full
 depth (100 qubits, 10 Trotter steps) on the exact light-cone engine at
-the calibrated noise scale; ``fast``: 20 qubits, 3 steps, 10 circuits a
-step and 32 / 16 error realizations.
+the calibrated noise scale; ``fast``: 10 qubits, 1 step, 6 circuits a
+step and 4 / 2 error realizations.
 """
 import numpy as np
 
@@ -14,11 +14,11 @@ from . import run
 
 def main(device="cuda", fast=False):
     if fast:
-        nq = 20
+        nq = 10
         out = demo1_zne_mimic_100q(
-            configurable_device(nq, seed=1), nq=nq, num_steps=3,
-            qubits=(0, 5, 10, 15, 19), num_circ_per_step=10,
-            train_per_step=2, num_twirls=32, num_twirls_amp=16,
+            configurable_device(nq, seed=1), nq=nq, num_steps=1,
+            qubits=(0, 3, 5, 7, 9), num_circ_per_step=6,
+            train_per_step=2, num_twirls=4, num_twirls_amp=2,
             noise_scale=DEMO1_CALIBRATED_SCALE, seed=0, device=device)
     else:
         out = demo1_zne_mimic_100q(

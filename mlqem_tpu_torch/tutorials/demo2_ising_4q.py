@@ -2,7 +2,7 @@
 
 Runner of ``docs/demos/demo2_ising_4q.py``: an RF trained on randomized
 (J, steps) circuits, evaluated on the paper configuration's 10-step
-sweep (150 training circuits, 10,000 shots); ``fast``: 4 steps and 40
+sweep (150 training circuits, 10,000 shots); ``fast``: 2 steps and 12
 training circuits.
 """
 import numpy as np
@@ -12,8 +12,8 @@ from . import run
 
 
 def main(device="cuda", fast=False):
-    out = demo2_ising_4q(num_steps=4 if fast else 10,
-                         num_train=40 if fast else 150, shots=10000, seed=0,
+    out = demo2_ising_4q(num_steps=2 if fast else 10,
+                         num_train=12 if fast else 150, shots=10000, seed=0,
                          device=device)
     print(f"RMSE noisy     : {out['rmse_noisy']:.5f}")
     print(f"RMSE mitigated : {out['rmse_mitigated']:.5f}")

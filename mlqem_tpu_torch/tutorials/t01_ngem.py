@@ -24,7 +24,7 @@ def main(device="cuda", fast=False):
     dev = get_device("fake_lima")
     # random 4q circuits, ideal + noisy single-Z labels
     entries = generate_exp_val_dataset(dev, n_qubits=4, circuit_depth=3,
-                                       num_entries=60 if fast else 200,
+                                       num_entries=20 if fast else 200,
                                        seed=0, device=device)
     ds = ExpValDataset(entries)
     arrays = dict(ds.arrays)
@@ -44,7 +44,7 @@ def main(device="cuda", fast=False):
         observable_size=arrays["observable"].shape[-1])
     state, _ = train_gnn(
         model, {**{k: v[tr] for k, v in arrays.items()}, "y": y[tr]},
-        num_epochs=40 if fast else 150, batch_size=32, learning_rate=1e-3,
+        num_epochs=4 if fast else 150, batch_size=32, learning_rate=1e-3,
         seed=0, device=device)
     pred = predict(model, state, gnn_inputs,
                    {k: v[te] for k, v in arrays.items()})

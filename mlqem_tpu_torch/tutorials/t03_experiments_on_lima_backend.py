@@ -16,11 +16,11 @@ from . import run
 
 def main(device="cuda", fast=False):
     dev = get_device("fake_lima")
-    ds = ising_dataset(dev, num_circuits=24 if fast else 80, shots=10000,
+    ds = ising_dataset(dev, num_circuits=12 if fast else 80, shots=10000,
                        seed=0, device=device)
     # model zoo comparison (h10/h12/h15/h17/h34 shape, all four arms)
-    table = model_comparison(ds, dev, seed=0, mlp_epochs=30 if fast else 80,
-                             gnn_epochs=30 if fast else 400, device=device)
+    table = model_comparison(ds, dev, seed=0, mlp_epochs=3 if fast else 80,
+                             gnn_epochs=3 if fast else 400, device=device)
     for name, row in table.items():
         print(f"{name:14s} rmse: noisy {row['rmse_noisy']:.4f} -> "
               f"mitigated {row['rmse_mitigated']:.4f}")

@@ -13,13 +13,14 @@ from . import run
 
 def main(device="cuda", fast=False):
     dev = get_device("fake_lima")
-    data = vqe_dataset(dev, samples_per_pauli=20 if fast else 60,
+    data = vqe_dataset(dev, samples_per_pauli=4 if fast else 60,
                        shots=10000, seed=0, device=device)
-    processor, stats = train_vqe_processor(dev, data, device=device)
+    processor, stats = train_vqe_processor(
+        dev, data, n_estimators=20 if fast else 300, device=device)
     print("processor training:", stats)
     length, fci, ham = load_h2_problems()[4]   # near-equilibrium H2
     out = vqe_mitigation_study(dev, ham, processor,
-                               maxiter=20 if fast else 60, shots=10000,
+                               maxiter=10 if fast else 60, shots=10000,
                                device=device)
     print(f"H2 @ {length} A: exact {out['exact']:.5f}")
     for arm in ("ideal", "noisy", "mitigated"):

@@ -29,12 +29,12 @@ def main(device="cuda", fast=False):
     snaps = calibration_snapshots("ibmq_lima")
     dev_t0 = device_at_time(base, snaps, 0)
     dev_t100 = device_at_time(base, snaps, 100)
-    n_circ = 40 if fast else 100
+    n_circ = 16 if fast else 100
     ds_t0 = ising_dataset(dev_t0, num_circuits=n_circ, shots=None, seed=0,
                           device=device)
     X0, y0 = encode_dataset(ds_t0, dev_t0)
     model = MLP1(hidden_size=32, output_size=4, input_size=X0.shape[1])
-    state, _ = train_mlp(model, X0, y0, num_epochs=30 if fast else 80,
+    state, _ = train_mlp(model, X0, y0, num_epochs=3 if fast else 80,
                          batch_size=32, learning_rate=3e-3, seed=0,
                          device=device)
     ds_tr = ising_dataset(dev_t100, num_circuits=n_circ // 2, shots=None,
@@ -42,7 +42,7 @@ def main(device="cuda", fast=False):
     ds_te = ising_dataset(dev_t100, num_circuits=n_circ // 2, shots=None,
                           seed=2, device=device)
     out = finetune(model, state, ds_tr, dev_t100, ds_te,
-                   num_epochs=20 if fast else 50, seed=0, device=device)
+                   num_epochs=3 if fast else 50, seed=0, device=device)
     print(f"drifted device (t=100): zero-shot rmse "
           f"{out['rmse_zero_shot']:.4f} -> finetuned "
           f"{out['rmse_finetuned']:.4f} (noisy baseline "

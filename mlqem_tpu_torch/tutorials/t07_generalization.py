@@ -11,7 +11,7 @@ from . import run
 def main(device="cuda", fast=False):
     dev = get_device("fake_lima")
     out = generalization_study(dev, num_qubits=4,
-                               per_config=6 if fast else 12, shots=None,
+                               per_config=3 if fast else 12, shots=None,
                                seed=0, device=device)
     for split in ("interpolation", "extrapolation"):
         row = out[split]

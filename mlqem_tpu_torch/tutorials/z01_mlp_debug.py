@@ -27,10 +27,10 @@ def main(device="cuda", fast=False, out_dir=None):
     # the reference's depth sweep (range(0, 10, 2)) becomes steps 1..5;
     # fast trims circuits and epochs, not the shape of the diagnostics
     train_ds = mbl_dataset(dev, num_qubits=nq, theta=0.05 * np.pi,
-                           num_circuits=60 if fast else 500,
+                           num_circuits=20 if fast else 500,
                            steps_range=(1, 5), seed=0, device=device)
     test_ds = mbl_dataset(dev, num_qubits=nq, theta=0.05 * np.pi,
-                          num_circuits=30 if fast else 100,
+                          num_circuits=10 if fast else 100,
                           steps_range=(1, 5), seed=1, device=device)
     X_train, y_train = encode_dataset(train_ds, dev)
     X_test, y_test = encode_dataset(test_ds, dev)
@@ -38,7 +38,7 @@ def main(device="cuda", fast=False, out_dir=None):
     model = MLP1(hidden_size=128, output_size=nq,
                  input_size=X_train.shape[1])
     state, history = train_mlp(model, X_train, y_train,
-                               num_epochs=20 if fast else 30, batch_size=32,
+                               num_epochs=3 if fast else 30, batch_size=32,
                                seed=0, device=device)
     pred = predict(model, state, mlp_inputs,
                    {"X": np.asarray(X_test, np.float32)})

@@ -29,6 +29,8 @@ from mlqem_tpu_torch.utils import build, native
 from mlqem_tpu_torch.utils.jobs import JobLedger, run_with_resubmission
 from mlqem_tpu_torch.utils.profiling import StageTimer, trace
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 DEV, J_DEV = get_device("fake_lima"), j_get_device("fake_lima")
 
 

@@ -18,6 +18,8 @@ from mlqem_tpu_torch.workflows.artifacts import main as write_artifact
 from mlqem_tpu_torch.workflows.schemas import (check_demo1, check_demo2,
                                                check_paper_parity)
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = {
     "demo1": (check_demo1, "docs/demos/results/demo1_100q_simulated.json"),

@@ -23,6 +23,8 @@ from mlqem_tpu_torch.convert import (circuit_tensor_from_numpy,
                                      template_from_numpy)
 from mlqem_tpu_torch.parallel.datagen import make_ising_template
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 
 def _assert_ct_equal(got, want):
     assert got.num_qubits == want.num_qubits

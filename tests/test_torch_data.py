@@ -27,6 +27,8 @@ from mlqem_tpu_torch.data import graph as tg
 from mlqem_tpu_torch.data import loaders as tl
 from mlqem_tpu_torch.exceptions import MLQEMException
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 LABEL_TOL = 1e-5
 
 

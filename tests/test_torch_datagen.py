@@ -21,6 +21,8 @@ from mlqem_tpu_torch import IsingLabelPipeline, configurable_device
 from mlqem_tpu_torch.convert import pipeline_tables_from_numpy
 from mlqem_tpu_torch.utils.profiling import reset_spans, span_totals, tracing
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 
 def _share_draws(monkeypatch, draws):
     def j_sample(key, probs, shape):

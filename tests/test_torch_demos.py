@@ -18,6 +18,8 @@ from mlqem_tpu.workflows import demos as jdemos
 import mlqem_tpu_torch.ops.sampling as t_sampling
 from mlqem_tpu_torch.workflows import demos as tdemos
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 NQ, STEPS = 10, 4
 DEMO1 = dict(nq=NQ, num_steps=STEPS, num_circ_per_step=5, train_per_step=2,
              qubits=(1, 5, 8), shots=None, num_twirls=3, num_twirls_amp=2,
@@ -126,11 +128,12 @@ def test_demo1_j00_clifford_row(demo1_runs):
     assert max(float(np.abs(r["ideal"]).max()) for r in others) > 0.05
 
 
-def test_demo1_refuses_pauli_prop(tmp_path):
-    """demo1's sparse Pauli-propagation engine (it no longer refuses it):
-    the engine arms, J00 row and truncation discard equal JAX's within
-    1e-5; the port post-processes JAX's cache as JAX does (≤ 1e-6). An
-    unknown engine is still refused."""
+def test_demo1_pauli_prop_matches_jax_and_unknown_engine_is_refused(
+        tmp_path):
+    """demo1's sparse Pauli-propagation engine: the engine arms, J00 row
+    and truncation discard equal JAX's within 1e-5; the port
+    post-processes JAX's cache as JAX does (≤ 1e-6). An unknown engine is
+    refused."""
     j_cache, t_cache = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
     want = jdemos.demo1_zne_mimic_100q(engine="pauli_prop",
                                        arrays_cache=j_cache, **DEMO1)

@@ -50,6 +50,8 @@ from mlqem_tpu_torch.ops.unitaries import op_unitaries
 from mlqem_tpu_torch.parallel.datagen import make_ising_template
 from mlqem_tpu_torch.utils.profiling import reset_spans, span_totals, tracing
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 TOL = 1e-6
 
 

@@ -16,6 +16,8 @@ from mlqem_tpu_torch import NoiseModel, configurable_device, get_device
 from mlqem_tpu_torch.convert import device_from_jax_dict
 from mlqem_tpu_torch.device.registry import list_devices
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 DEVICES = [("configurable_10", lambda m: m.configurable_device(10, seed=0)),
            ("fake_lima", lambda m: m.get_device("fake_lima"))]
 

@@ -20,6 +20,8 @@ from mlqem_tpu_torch.entry import (dp_train_step, dryrun_batch,
                                    dryrun_model, dryrun_multichip)
 from mlqem_tpu_torch.models.gnn import edge_index_to_adj
 
+from port_fixtures import bounded_rank_wait, one_torch_thread  # noqa: F401
+
 N_DEV = 4
 LR = 1e-3
 

@@ -17,6 +17,8 @@ from mlqem_tpu_torch.ops.kernels import evolve as kev
 from mlqem_tpu_torch.ops.kernels.wht import hadamard_dense
 from mlqem_tpu_torch.ops.kicked_ising import _bonds, _sign_tables, wht
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 
 def _tables(nq):
     bit_pm, bond_par = _sign_tables(nq)

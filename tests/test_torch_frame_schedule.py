@@ -19,6 +19,8 @@ from mlqem_tpu_torch.ops.frame_trajectory import frame_plan
 from mlqem_tpu_torch.ops.kernels import frame_evolve as fe
 from mlqem_tpu_torch.parallel.datagen import make_ising_template
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 WIDTHS = (11, 12, 13, 14, 15, 16, 20)
 PLANS = ("every_kind", "every_path", "ising")
 

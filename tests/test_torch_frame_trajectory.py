@@ -33,6 +33,8 @@ from mlqem_tpu_torch.ops.kernels import frame_evolve as fe
 from mlqem_tpu_torch.ops.statevector import z_expectations
 from mlqem_tpu_torch.parallel.datagen import make_ising_template
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 G1_FIXED = ["x", "y", "z", "h", "s", "sdg", "t", "tdg", "sx", "sxdg", "id"]
 G1_ROT = ["rx", "ry", "rz", "p"]
 G2 = ["cx", "cy", "cz", "swap"]

@@ -22,17 +22,7 @@ from mlqem_tpu_torch import KickedIsingEngine, configurable_device
 from mlqem_tpu_torch.convert import engine_tables_from_numpy
 
 from lightcone_windows import window_bonds
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file: the suite runs six workers on a
-    few cores, and torch's thread pool, oversubscribed, makes these small
-    ops tens of times slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from port_fixtures import one_torch_thread  # noqa: F401
 
 
 def _draws(rng, steps, rows, nb):

@@ -41,6 +41,8 @@ from mlqem_tpu_torch.models import train as ttrain
 from mlqem_tpu_torch.workflows.gnn_training import (tomography_sweep,
                                                     train_gnn_mitigation)
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 STEP_TOL = 1e-5
 EPOCH_TOL = 1e-4
 EST_TOL = 1e-5

@@ -27,19 +27,10 @@ from mlqem_tpu_torch.ops.kernels import fused_step as kfs
 from mlqem_tpu_torch.ops.lightcone import cone_window, readout_affine
 from mlqem_tpu_torch.workflows.demos import lightcone_crosscheck
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 DT, H = 0.5, 0.5 * np.pi
 J = np.array([0.05, 0.3, 0.55], np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file: the suite runs six workers on a
-    few cores, and torch's thread pool, oversubscribed, makes these small
-    ops tens of times slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _shape_draws(shape):

@@ -27,6 +27,8 @@ from mlqem_tpu_torch import (IsingLabelPipeline, KickedIsingEngine,
 from mlqem_tpu_torch.entry import mesh_label_runs
 from mlqem_tpu_torch.parallel.mesh import make_mesh, pad_to_multiple, spawn
 
+from port_fixtures import bounded_rank_wait, one_torch_thread  # noqa: F401
+
 RANKS = 4
 J16 = np.linspace(0.1, 0.5, 16).astype(np.float32)
 LIMA = dict(nq=4, steps=2, dt=0.5)

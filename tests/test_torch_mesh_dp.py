@@ -21,6 +21,8 @@ from mlqem_tpu_torch import KickedIsingEngine, configurable_device
 from mlqem_tpu_torch.parallel.mesh import make_mesh, mesh_device, spawn
 from mlqem_tpu_torch.utils.profiling import reset_spans, span_totals, tracing
 
+from port_fixtures import bounded_rank_wait, one_torch_thread  # noqa: F401
+
 RANKS = 4
 SMALL = dict(nq=6, steps=2, n_traj=8, shots=1000)
 MESH_SPANS = ["kicked.generate/kicked.frame/kicked.draws",

@@ -30,6 +30,8 @@ from mlqem_tpu_torch.mitigation import zne as tz
 from mlqem_tpu_torch.ops.statevector import statevector
 from mlqem_tpu_torch.transpile import lower as tl
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 
 def _jax_circuit(cu3=True):
     c = (JCircuit(3).h(0).cx(0, 1).cz(1, 2).rx(0.3, 2).ecr(2, 0)

@@ -24,6 +24,8 @@ from mlqem_tpu_torch.models import gnn, mlp
 from mlqem_tpu_torch.models.forest import RandomForestRegressor
 from mlqem_tpu_torch.models.linear import LinearRegression
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 TOL = 1e-5
 STATS_TOL = 1e-6
 

@@ -20,6 +20,8 @@ from mlqem_tpu.workflows import paper_parity as jpar
 from mlqem_tpu_torch.workflows import datasets as td
 from mlqem_tpu_torch.workflows import paper_parity as tpar
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 LABEL_TOL = 1e-5
 JDEV = j_get_device("fake_lima")
 

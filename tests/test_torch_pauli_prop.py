@@ -29,6 +29,8 @@ from mlqem_tpu_torch.ops.density import (batch_density_matrices,
                                          dm_probabilities)
 from mlqem_tpu_torch.ops.statevector import z_expectations
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 VAL_TOL = 1e-6
 DISC_TOL = 1e-5
 NQ_WIDE, K_OPS = 40, 64

@@ -29,6 +29,8 @@ from mlqem_tpu_torch.circuits.parameters import Parameter
 from mlqem_tpu_torch.primitives.estimator import (_measurement_groups,
                                                   _normalize_run_args)
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 HAM = [("II", -1.05), ("ZI", 0.39), ("IZ", -0.39), ("ZZ", -0.01),
        ("XX", 0.18), ("YY", 0.18), ("XI", 0.3), ("IY", -0.2)]
 

@@ -11,6 +11,8 @@ from mlqem_tpu_torch.ops.density import apply_readout_confusion
 from mlqem_tpu_torch.ops.sampling import sample_small_categorical
 from mlqem_tpu_torch.ops.trajectory import pauli_channel_probs
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 
 def _bond_channel_probs():
     """A real 16-way bond channel, made noisier so every Pauli shows up."""

@@ -25,6 +25,8 @@ from mlqem_tpu_torch.circuits.circuit import Circuit
 from mlqem_tpu_torch.entry import sharded_sv_runs
 from mlqem_tpu_torch.parallel.mesh import spawn
 
+from port_fixtures import bounded_rank_wait, one_torch_thread  # noqa: F401
+
 RANKS = 8
 
 

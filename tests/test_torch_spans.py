@@ -24,20 +24,11 @@ from mlqem_tpu_torch.utils.profiling import (fold_spans, reset_spans, span,
                                              span_totals, trace, tracing)
 from mlqem_tpu_torch.workflows.zne_scale import zne_sweep_ising
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 KICKED = ["kicked.frame", "kicked.frame/kicked.draws", "kicked.evolve",
           "kicked.readout", "kicked.readout/kicked.confusion",
           "kicked.readout/kicked.shots", "kicked.ideal"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file: the suite runs six workers on a
-    few cores, and torch's thread pool, oversubscribed, makes these small
-    ops tens of times slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -21,6 +21,8 @@ from mlqem_tpu_torch.circuits.families import (generate_composed_clifford,
 from mlqem_tpu_torch.circuits.observables import all_z
 from mlqem_tpu_torch.ops.statevector import expval_pauli_sum, statevector
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 SV_TOL = 1e-5
 
 

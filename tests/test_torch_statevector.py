@@ -25,6 +25,8 @@ from mlqem_tpu_torch.ops import statevector as tsv
 from mlqem_tpu_torch.ops import unitaries as tu
 from mlqem_tpu_torch.parallel.datagen import make_ising_template
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 
 def test_op_unitaries_every_gate_kind(rng):
     gate_ids = np.arange(len(GATE_NAMES), dtype=np.int32)      # all 34

@@ -25,18 +25,9 @@ from mlqem_tpu_torch.ops.kernels import wht as kwht
 from mlqem_tpu_torch.ops.kicked_ising import _sign_tables, kicked_steps
 from mlqem_tpu_torch.utils.profiling import reset_spans, span_totals, tracing
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 THETA_H = 0.9
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this file: the suite runs six workers on a
-    few cores, and torch's thread pool, oversubscribed, makes these small
-    ops tens of times slower."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs(w, rows, seed, nb=None):

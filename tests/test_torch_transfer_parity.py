@@ -22,6 +22,8 @@ from mlqem_tpu_torch import MLP1, Circuit, convert, get_device
 from mlqem_tpu_torch.workflows import datasets as td
 from mlqem_tpu_torch.workflows import transfer as ttr
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 EPOCH_TOL = 1e-4
 JDEV, DEV = j_get_device("fake_lima"), get_device("fake_lima")
 

@@ -11,6 +11,8 @@ from mlqem_tpu.workflows import demos as jdemos
 from mlqem_tpu_torch import configurable_device
 from mlqem_tpu_torch.workflows import demos as tdemos
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 VAL_TOL = 1e-6
 
 

@@ -25,6 +25,8 @@ from mlqem_tpu_torch import (VQE, Circuit, EmptyProcessor, IdealEstimator,
 from mlqem_tpu_torch.circuits.families import two_local_ansatz
 from mlqem_tpu_torch.circuits.parameters import circuit_parameters
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 DEV, J_DEV = get_device("fake_lima"), j_get_device("fake_lima")
 TOL = 1e-5
 

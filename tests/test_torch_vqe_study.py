@@ -17,6 +17,8 @@ from mlqem_tpu_torch import get_device, load_h2_problems
 from mlqem_tpu_torch.utils.profiling import StageTimer
 from mlqem_tpu_torch.workflows import vqe_study
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 DEV, J_DEV = get_device("fake_lima"), j_get_device("fake_lima")
 TOL = 1e-5
 

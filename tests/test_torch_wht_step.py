@@ -22,6 +22,8 @@ from mlqem_tpu_torch.ops.kernels import fused_step as kfs
 from mlqem_tpu_torch.ops.kernels import wht as kwht
 from mlqem_tpu_torch.ops.kicked_ising import _sign_tables, wht_mm
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 
 def _planes(rng, rows, nq):
     return (rng.normal(size=(rows, 2 ** nq)).astype(np.float32),

@@ -29,6 +29,8 @@ from mlqem_tpu_torch.workflows import generalization as tgen
 from mlqem_tpu_torch.workflows import gnn_training as tgnn_training
 from mlqem_tpu_torch.workflows import mitigate as tmit
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 LABEL_TOL = 1e-5
 EPOCH_TOL = 1e-4
 

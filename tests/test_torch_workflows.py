@@ -26,6 +26,8 @@ from mlqem_tpu_torch.circuits.families import IsingOptions
 from mlqem_tpu_torch.workflows import datasets as td
 from mlqem_tpu_torch.workflows import mitigate as tmit
 
+from port_fixtures import one_torch_thread  # noqa: F401
+
 LABEL_TOL = 1e-5
 CHANNEL_TOL = 1e-7
 
