@@ -1,10 +1,11 @@
 """Pauli-twirled noise tables (host numpy) and the gather trajectory engine.
 
 A noise channel is projected onto its Pauli-twirled form: a Pauli channel
-whose probabilities are the Walsh–Hadamard transform of the channel's
-Pauli-transfer-matrix diagonal. The kicked-Ising engine samples one of the
-16 two-qubit Paulis after every CX from these tables; the generic engines
-sample one after every op (:func:`twirled_noise_tables`).
+whose probabilities are the diagonal of the channel's Pauli (χ) matrix,
+the Walsh–Hadamard transform of its Pauli-transfer-matrix diagonal. The
+kicked-Ising engine samples one of the 16 two-qubit Paulis after every CX
+from these tables; the generic engines sample one after every op
+(:func:`twirled_noise_tables`).
 
 :func:`run_trajectories_presampled` is the generic trajectory engine for a
 template: each trajectory is a statevector run in which every op's 4x4 is
@@ -58,6 +59,11 @@ def _walsh() -> np.ndarray:
 
 _WALSH = _walsh()
 
+# column Q is conj(vec(Q)): vec(K) @ _PAULI_CONJ_T = tr(Q† K) for each Q
+_PAULI_CONJ_T = np.ascontiguousarray(
+    PAULI_4X4.astype(np.complex128).reshape(16, 16).conj().T)
+_PAULI_CONJ_T.flags.writeable = False
+
 
 def walsh_sign_matrix() -> np.ndarray:
     """w[P, Q] = ±1 commutation signs over the 16 2q Paulis (read-only).
@@ -82,19 +88,19 @@ def compose_pauli_channel(probs: np.ndarray, k: int) -> np.ndarray:
 def pauli_channel_probs(channel: Channel) -> np.ndarray:
     """Pauli-twirled probabilities p[16] of a 2q channel.
 
-    p_Q = (1/16) Σ_P w(Q,P) · R_P with R_P = tr(P E(P))/4 the PTM diagonal
-    and w(Q,P) = ±1 for commuting/anticommuting Pauli pairs. The span
+    The twirl keeps the diagonal of the channel's Pauli (χ) matrix:
+    p_Q = Σ_K |tr(Q† K)|² / 16 over its Kraus operators K, one
+    [n_K, 16] × [16, 16] product. This equals (1/16) Σ_P w(Q,P) · R_P,
+    the Walsh transform of the PTM diagonal R_P = tr(P E(P))/4 (w(Q,P) =
+    ±1 for commuting/anticommuting pairs). A 1q channel acts on qubit a.
+    The result is clipped at 0 and normalised to sum 1, so a channel that
+    is not trace-preserving still gives a distribution. The span
     ``trajectory.twirl``.
     """
     with span("trajectory.twirl"):
         ch = channel.expand_to_2q(0) if channel.dim == 2 else channel
-        R = np.zeros(16)
-        for i, P in enumerate(PAULI_4X4):
-            acc = np.zeros((4, 4), dtype=np.complex128)
-            for K in ch.kraus:
-                acc += K @ P @ np.conj(K.T)
-            R[i] = np.real(np.trace(P @ acc)) / 4.0
-        p = (walsh_sign_matrix().astype(np.float64) @ R) / 16.0
+        kraus = np.asarray(ch.kraus, np.complex128).reshape(-1, 16)
+        p = (np.abs(kraus @ _PAULI_CONJ_T) ** 2).sum(axis=0) / 16.0
         p = np.clip(p, 0.0, None)
         s = p.sum()
         if s > 0:

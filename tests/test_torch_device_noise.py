@@ -125,3 +125,116 @@ def test_channel_constructors_equal():
             == jchannels.depol_param_for_target_error(0.01, jrelax, 1))
     np.testing.assert_array_equal(tchannels.readout_confusion(0.02, 0.03),
                                   jchannels.readout_confusion(0.02, 0.03))
+
+
+# -- the closed-form twirl against the JAX package's PTM loop ---------------
+
+def _forward_only(nm):
+    """A copy keeping one direction of each CX pair, so that channel_for
+    builds the other by SWAP conjugation."""
+    out = nm.copy()
+    out.local_channels = {(g, q): c for (g, q), c in nm.local_channels.items()
+                          if g != "cx" or q[0] < q[1]}
+    return out
+
+
+TWIRL_MODELS = {
+    "configurable_10": lambda: NoiseModel.from_device(
+        configurable_device(10, seed=0)),
+    "configurable_100_x2.5": lambda: NoiseModel.from_device(
+        configurable_device(100, seed=1), scale=2.5),
+    "fake_lima": lambda: NoiseModel.from_device(get_device("fake_lima")),
+    "fake_lima_forward_only": lambda: _forward_only(
+        NoiseModel.from_device(get_device("fake_lima"))),
+}
+
+
+def _ptm_loop(chan):
+    """The JAX package's twirl of the port's channel."""
+    return jtraj.pauli_channel_probs(jchannels.Channel(list(chan.kraus)))
+
+
+@pytest.mark.parametrize("name", list(TWIRL_MODELS))
+def test_pauli_channel_probs_closed_form_cx(name):
+    nm = TWIRL_MODELS[name]()
+    pairs = sorted({tuple(sorted(q)) for g, q in nm.local_channels
+                    if g == "cx"})[:20]
+    assert pairs
+    for a, b in pairs:
+        for qubits in ((a, b), (b, a)):
+            chan = nm.channel_for("cx", qubits)
+            np.testing.assert_allclose(ttraj.pauli_channel_probs(chan),
+                                       _ptm_loop(chan), atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("chan", [
+    tchannels.thermal_relaxation_channel(1.1e-4, 0.9e-4, 4e-7),
+    tchannels.amplitude_damping_channel(0.07).compose(
+        tchannels.depolarizing_channel(0.01, 1)),
+], ids=["thermal", "amp_damp_depol"])
+def test_pauli_channel_probs_closed_form_1q(chan):
+    assert chan.dim == 2
+    got = ttraj.pauli_channel_probs(chan)
+    np.testing.assert_allclose(got, _ptm_loop(chan), atol=1e-12, rtol=0)
+    np.testing.assert_array_equal(
+        got, ttraj.pauli_channel_probs(chan.expand_to_2q(0)))
+
+
+@pytest.mark.parametrize("kraus", [
+    [0.9 * k for k in tchannels.depolarizing_channel(0.03, 2).kraus],
+    [np.diag([1.0, 0.7, 0.5, 0.2]).astype(np.complex128)],
+    [np.zeros((4, 4), np.complex128)],
+], ids=["scaled_depol", "one_diagonal", "zero"])
+def test_pauli_channel_probs_closed_form_not_trace_preserving(kraus):
+    chan = tchannels.Channel(kraus)
+    got = ttraj.pauli_channel_probs(chan)
+    np.testing.assert_allclose(got, _ptm_loop(chan), atol=1e-12, rtol=0)
+    assert got.min() >= 0.0
+    assert got.sum() == pytest.approx(1.0 if np.any(kraus[0]) else 0.0,
+                                      abs=1e-12)
+
+
+@pytest.mark.parametrize("num_qubits,seed,scale",
+                         [(10, 0, 1.0), (100, 1, 2.5)],
+                         ids=["kicked-ising-10q", "lightcone-100q-demo1"])
+def test_pauli_channel_probs_float32_bits(num_qubits, seed, scale):
+    """The benchmark calibrations' float32 tables equal the PTM loop's bit
+    for bit, so the Paulis drawn for a seed do not change."""
+    nm = NoiseModel.from_device(configurable_device(num_qubits, seed=seed),
+                                scale=scale)
+    chans = [c for (g, _), c in sorted(nm.local_channels.items())
+             if g == "cx"]
+    assert len(chans) == 2 * (num_qubits - 1)
+    got = np.stack([ttraj.pauli_channel_probs(c) for c in chans])
+    want = np.stack([_ptm_loop(c) for c in chans])
+    np.testing.assert_array_equal(got.astype(np.float32),
+                                  want.astype(np.float32))
+
+
+def test_kicked_engine_bond_probs_equal_jax():
+    """The ZNE cell's engine at noise_scale 3: the twirled, composed bond
+    table equals the JAX engine's."""
+    from mlqem_tpu.ops.kicked_ising import KickedIsingEngine as JEngine
+    from mlqem_tpu_torch.ops.kicked_ising import KickedIsingEngine
+
+    got = KickedIsingEngine(configurable_device(10, seed=0), nq=10, steps=4,
+                            device="cpu", noise_scale=3).tables.bond_probs
+    want = JEngine(j_configurable(10, seed=0), nq=10, steps=4,
+                   noise_scale=3)._bond_probs
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_lightcone_window_probs_equal_jax():
+    """demo1's noise (×2.5) on the window of qubit 54 (w 21, 20 bonds)."""
+    from mlqem_tpu.ops.lightcone import LightconeIsing as JLightcone
+    from mlqem_tpu_torch.ops.lightcone import LightconeIsing
+
+    dev, jdev = configurable_device(100, seed=1), j_configurable(100, seed=1)
+    got = LightconeIsing(dev, nq=100, steps=10, device="cpu",
+                         noise_model=NoiseModel.from_device(dev, scale=2.5)
+                         ).window_tables(54)
+    want = JLightcone(jdev, nq=100, steps=10,
+                      noise_model=JNoiseModel.from_device(jdev, scale=2.5)
+                      )._window_tables(54)
+    assert got["bonds"] == want["bonds"] and len(got["bonds"]) == 20
+    np.testing.assert_array_equal(got["probs"], want["probs"])
